@@ -1,0 +1,333 @@
+"""Batched Taylor-Hood P2/P1 assembly on tensors (2D main-path subset).
+
+The port of ``fenapack_tpu/fem/assemble.py::NSAssembler``: per-cell element
+tensors are batched matrix products over quadrature points, scattered into
+static-sparsity operators with one ``index_add_`` per operator.  Constant
+operators (viscous Laplacian L, divergence D and gradient DT, pressure mass
+Mp and stiffness Ap) are assembled once; the wind-dependent ones (convection
+N(w), pressure convection Kp with the BRM2 inflow surface term) are plain
+functions of the current velocity iterate.
+
+Precision follows the JAX package: a wind of lower precision than the
+assembler is promoted before the element integrals, and ``compute32`` runs
+the per-step convection integrals in f32 and casts the assembled values up.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import elements as el
+from .dofmap import TaylorHood
+from .mesh import INFLOW
+from ..ops.sparse import pattern_from_dofmaps
+
+
+@dataclasses.dataclass
+class ConstOperators:
+    """Mesh-constant operators.  ``L`` is the unscaled scalar P2 stiffness
+    (applied per component); ``D[a]``/``DT[a]`` the divergence/gradient
+    blocks with the ``-int q d_a u_a`` sign, so the system is
+    ``[[A, D^T], [D, 0]]``; ``Mp`` is scaled by 1/nu; ``Ap`` is unscaled.
+    A pressure-only assembler leaves ``L``, ``D`` and ``DT`` empty."""
+    L: Optional[object]
+    Mp: object
+    Ap: object
+    D: Tuple[object, ...]
+    DT: Tuple[object, ...]
+
+
+class NSAssembler:
+    """Navier-Stokes / PCD operator assembly on one triangle mesh.
+
+    ``block_size`` selects the block-sparse (BSR) layout with that tile
+    size; ``block_dtype`` the storage dtype of the compute-precision block
+    constants (``const``); ``hi_block`` keeps the high-precision operators
+    (``const_hi``, the outer matvec and residual) in the same block layout
+    instead of ELL.  ``p1_only`` builds the pressure space alone (pattern,
+    Ap, Mp), as the pressure multigrid levels need.  Velocity layout:
+    ``u = [u_x (n2); u_y (n2)]``.  Dofs keep the mesh's natural order.
+    """
+
+    def __init__(self, mesh, nu: float, *, device, dtype=torch.float64,
+                 quad_degree: int = 5, block_size: Optional[int] = None,
+                 block_dtype=None, hi_block: bool = False,
+                 p1_only: bool = False):
+        self.device = torch.device(device)
+        self._p1_only = bool(p1_only)
+        self.mesh = mesh
+        self.nu = float(nu)
+        self.dtype = dtype
+        self.quad_degree = quad_degree
+        self.dim = d = mesh.vertices.shape[1]
+        self.block_size = block_size
+        self.W = W = TaylorHood(mesh)
+        self.n2, self.n1 = W.n2, W.n1
+
+        qp, qw = el.triangle_quadrature(quad_degree)
+        phi2, dphi2 = el.p2_basis(qp)
+        phi1, dphi1 = el.p1_basis(qp)
+        self.nq = qp.shape[0]
+        self.nb2, self.nb1 = phi2.shape[1], phi1.shape[1]
+
+        v = mesh.vertices[mesh.cells]                       # (nc, 3, 2)
+        J = np.stack([v[:, i + 1] - v[:, 0] for i in range(d)], axis=2)
+        Jinv = np.linalg.inv(J)
+        adet = np.abs(np.linalg.det(J))
+        self._v0, self._Jinv_np = v[:, 0], Jinv
+        g1 = np.einsum("ik,ckd->cid", dphi1[0], Jinv)       # (nc, nb1, d)
+        self.nc = mesh.num_cells
+        self._cd2_np = W.V.cell_dofs.astype(np.int64)
+        self._cd1_np = W.Q.cell_dofs.astype(np.int64)
+
+        t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,
+                                      device=self.device)
+        self.cd2 = torch.as_tensor(self._cd2_np, device=self.device)
+        self.cd1 = torch.as_tensor(self._cd1_np, device=self.device)
+        self.Jinv, self.dphi2, self.g1 = t(Jinv), t(dphi2), t(g1)
+        self.adet, self.qw = t(adet), t(qw)
+        self.phi2, self.phi1 = t(phi2), t(phi1)
+        self.wdet = self.adet[:, None] * self.qw[None, :]   # (nc, nq)
+        self._host_tabs = dict(Jinv=Jinv, dphi2=dphi2, g1=g1, phi2=phi2,
+                               phi1=phi1)
+
+        cd2, cd1 = self._cd2_np, self._cd1_np
+
+        def build_patterns(block):
+            dofmaps = ((cd2, cd2, self.n2, self.n2),
+                       (cd1, cd1, self.n1, self.n1),
+                       (cd1, cd2, self.n1, self.n2),
+                       (cd2, cd1, self.n2, self.n1))
+            return tuple(
+                None if self._p1_only and (nr, ncol) != (self.n1, self.n1)
+                else pattern_from_dofmaps(cr, cc, nr, ncol, block=block,
+                                          device=self.device)
+                for cr, cc, nr, ncol in dofmaps)
+
+        self.pat_p2, self.pat_p1, self.pat_div, self.pat_divT = \
+            build_patterns(block_size)
+        if block_size and not hi_block:
+            (self.pat_p2_hi, self.pat_p1_hi, self.pat_div_hi,
+             self.pat_divT_hi) = build_patterns(None)
+        else:
+            self.pat_p2_hi, self.pat_p1_hi = self.pat_p2, self.pat_p1
+            self.pat_div_hi, self.pat_divT_hi = self.pat_div, self.pat_divT
+
+        self.n_inflow_facets = 0
+        if not self._p1_only:
+            self._flat = self._flat_tables()
+            self._setup_facets()
+
+        if block_size:
+            self.const_hi = self._assemble_constant(hi=True)
+            self.const = self._assemble_constant(hi=False,
+                                                 out_dtype=block_dtype)
+        else:
+            self.const = self.const_hi = self._assemble_constant()
+
+    # ------------------------------------------------------------------ #
+    def _setup_facets(self):
+        """INFLOW-facet quadrature tables for the BRM2 Kp surface term
+        ``-(1/nu) (w.n) p q ds``: physical facet quadrature points mapped
+        back to reference coordinates in the owning cell."""
+        mesh = self.mesh
+        sel = np.where(mesh.facet_markers == INFLOW)[0]
+        self.n_inflow_facets = sel.shape[0]
+        if not sel.shape[0]:
+            return
+        fv = mesh.edges[mesh.boundary_facets[sel]]            # (nf, 2)
+        fcells = mesh.facet_cells[sel]
+        normals = mesh.facet_normals()[sel]
+        tq, wq = el.interval_quadrature(4)
+        bary = np.stack([1 - tq, tq], axis=1)                 # (ntq, 2)
+        a, b = mesh.vertices[fv[:, 0]], mesh.vertices[fv[:, 1]]
+        measure = np.linalg.norm(b - a, axis=1)
+        pts = np.einsum("qv,fvd->fqd", bary, mesh.vertices[fv])
+        pref = np.einsum("fkd,fqd->fqk", self._Jinv_np[fcells],
+                         pts - self._v0[fcells][:, None, :])
+        nf, ntq = pref.shape[:2]
+        p2, _ = el.p2_basis(pref.reshape(-1, 2))
+        p1, _ = el.p1_basis(pref.reshape(-1, 2))
+        t = lambda x: torch.as_tensor(x, dtype=self.dtype, device=self.device)
+        self.f_phi2 = t(p2.reshape(nf, ntq, -1))
+        self.f_phi1 = t(p1.reshape(nf, ntq, -1))
+        self.f_wlen = t(measure[:, None] * wq[None, :])
+        self.f_normals = t(normals)
+        self.f_cd2 = torch.as_tensor(self._cd2_np[fcells], device=self.device)
+        f_cd1 = self._cd1_np[fcells]
+        # surface entries land in the volume P1 pattern's slots
+        self.kp_surf_pos = self.pat_p1.entry_positions(f_cd1, f_cd1)
+
+    def _pats(self, hi: bool):
+        if hi:
+            return (self.pat_p2_hi, self.pat_p1_hi, self.pat_div_hi,
+                    self.pat_divT_hi)
+        return (self.pat_p2, self.pat_p1, self.pat_div, self.pat_divT)
+
+    def _assemble_constant(self, hi: bool = False, out_dtype=None
+                           ) -> ConstOperators:
+        """Constant operators via factored element integrals: a tiny
+        reference-cell tensor contracted once over quadrature, composed with
+        per-cell metric tensors.  Assembled in the assembler dtype; the
+        RESULT is cast to ``out_dtype`` (f32-accumulated sums would carry
+        ~2e-6 relative error)."""
+        p2, p1, pdiv, pdivT = self._pats(hi)
+        phi1, dphi2, Jinv = self.phi1, self.dphi2, self.Jinv
+        adet, qw, g1 = self.adet, self.qw, self.g1
+        od = out_dtype or self.dtype
+
+        def asm_op(pat, elem):
+            return pat.matrix(pat.assemble_values(elem).to(od))
+
+        mref1 = torch.einsum("q,ql,qm->lm", qw, phi1, phi1)
+        mass_p1 = adet[:, None, None] * mref1[None] / self.nu
+        stiff_p1 = torch.einsum("c,cld,cmd->clm", adet * torch.sum(qw), g1, g1)
+        if self._p1_only:
+            return ConstOperators(L=None, Mp=asm_op(p1, mass_p1),
+                                  Ap=asm_op(p1, stiff_p1), D=(), DT=())
+        # viscous: adet_c * (Jinv Jinv^T)_ckl * T_klij,
+        # T_klij = sum_q qw dphi_qik dphi_qjl
+        M = torch.einsum("ckd,cld->ckl", Jinv, Jinv)
+        T = torch.einsum("q,qik,qjl->klij", qw, dphi2, dphi2)
+        visc = torch.einsum("c,ckl,klij->cij", adet, M, T)
+        # divergence: D_a[l,j] = -adet * (sum_q qw phi1 dphi_qjk) Jinv_ka
+        R = torch.einsum("q,ql,qjk->ljk", qw, phi1, dphi2)
+        div_all = -torch.einsum("c,ljk,cka->clja", adet, R, Jinv)
+        div = [div_all[..., a] for a in range(self.dim)]
+        return ConstOperators(
+            L=asm_op(p2, visc),
+            Mp=asm_op(p1, mass_p1), Ap=asm_op(p1, stiff_p1),
+            D=tuple(asm_op(pdiv, da) for da in div),
+            DT=tuple(asm_op(pdivT, da.transpose(1, 2)) for da in div))
+
+    # ------------------------------------------------------------------ #
+    def split_u(self, u: torch.Tensor):
+        """Components of the stacked velocity vector."""
+        n2 = self.n2
+        return [u[a * n2:(a + 1) * n2] for a in range(self.dim)]
+
+    def _flat_tables(self):
+        """Quadrature tables that turn the per-step element integrals into
+        plain (nc, M) @ (M, N) products (the JAX package's flat path)."""
+        h = self._host_tabs
+        d, nq, nb2, nb1 = self.dim, self.nq, self.nb2, self.nb1
+        phi2, dphi2, phi1 = h["phi2"], h["dphi2"], h["phi1"]
+        # uq: (nc, d*nb2) @ P -> (nc, nq*d); P[(a,i),(q,b)] = phi2 d_ab
+        P = np.zeros((d * nb2, nq * d))
+        for a in range(d):
+            for q in range(nq):
+                P[a * nb2:(a + 1) * nb2, q * d + a] = phi2[q]
+        # convection: elem_(ij) = t_(q,k) @ B2[(q,k),(i,j)],
+        # B2 = phi2_qi dphi2_qjk
+        B2 = np.zeros((nq * d, nb2 * nb2))
+        for q in range(nq):
+            for k in range(d):
+                B2[q * d + k] = np.outer(phi2[q], dphi2[q, :, k]).ravel()
+        # kp: elem_(lm) = v_(q,m) @ B1, B1[(q,m),(l,m')] = phi1_ql d_mm'
+        B1 = np.zeros((nq * nb1, nb1 * nb1))
+        for q in range(nq):
+            for m in range(nb1):
+                B1[q * nb1 + m, m::nb1] = phi1[q]
+        return dict(P=P, B2=B2, B1=B1,
+                    Jf=h["Jinv"].reshape(self.nc, d * d),
+                    g1f=h["g1"].reshape(self.nc, nb1 * d))
+
+    def _tab(self, name: str, dtype) -> torch.Tensor:
+        """Flat table in ``dtype`` (cached per dtype on first use)."""
+        key = (name, dtype)
+        cache = self.__dict__.setdefault("_tab_cache", {})
+        if key not in cache:
+            cache[key] = torch.as_tensor(self._flat[name], dtype=dtype,
+                                         device=self.device)
+        return cache[key]
+
+    def _uq_flat(self, u: torch.Tensor, cdt) -> torch.Tensor:
+        """(nc, nq*d) wind at quadrature points.  As in the JAX package the
+        per-cell dofs are taken in the promoted (wind, assembler) dtype and
+        the table ``P`` is rounded to ``cdt`` first."""
+        wdt = torch.promote_types(u.dtype, self.dtype)
+        ucf = torch.cat([c.to(wdt)[self.cd2] for c in self.split_u(u)], dim=1)
+        return (ucf @ self._tab("P", cdt).to(wdt)).to(cdt)
+
+    def convection_values(self, u: torch.Tensor, hi: bool = False,
+                          compute32: bool = False) -> torch.Tensor:
+        """Scalar convection N(w) values: N[i,j] = int (w.grad phi_j) phi_i.
+        ``compute32`` runs the element integrals in f32 and casts the
+        assembled values to the assembler dtype."""
+        d, nq = self.dim, self.nq
+        cdt = (torch.float32 if compute32
+               else torch.promote_types(u.dtype, self.dtype))
+        uqf = self._uq_flat(u, cdt)                        # (nc, nq*d)
+        wdet = self.wdet.to(cdt)
+        Jf = self._tab("Jf", cdt)
+        # t[(q,k)] = wdet_q * sum_b uq_(q,b) Jinv_(k,b)
+        cols = []
+        for k in range(d):
+            acc = 0.0
+            for b in range(d):
+                acc = acc + uqf[:, b::d] * Jf[:, k * d + b, None]
+            cols.append(wdet * acc)
+        t = torch.stack(cols, dim=2).reshape(uqf.shape[0], nq * d)
+        vals = self._pats(hi)[0].assemble_values(t @ self._tab("B2", cdt))
+        return vals.to(self.dtype) if compute32 else vals
+
+    def kp_values(self, u: torch.Tensor, surface: bool = False
+                  ) -> torch.Tensor:
+        """Pressure convection Kp = (1/nu) int (w.grad p) q dx
+        [+ the BRM2 inflow surface term when ``surface``]."""
+        d, nq, nb1 = self.dim, self.nq, self.nb1
+        cdt = torch.promote_types(u.dtype, self.dtype)
+        uqf = self._uq_flat(u, cdt)
+        g1f = self._tab("g1f", cdt)
+        wdet = self.wdet.to(cdt)
+        cols = []
+        for m in range(nb1):
+            acc = 0.0
+            for b in range(d):
+                acc = acc + uqf[:, b::d] * g1f[:, m * d + b, None]
+            cols.append(wdet * acc)
+        v = torch.stack(cols, dim=2).reshape(uqf.shape[0], nq * nb1)
+        elem = (v @ self._tab("B1", cdt)) / self.nu
+        vals = self.pat_p1.assemble_values(elem)
+        return self._kp_surface(vals, u) if surface else vals
+
+    def _kp_surface(self, vals: torch.Tensor, u: torch.Tensor):
+        """BRM2 inflow surface term added into the volume Kp values."""
+        if not self.n_inflow_facets:
+            return vals
+        cdt = vals.dtype
+        ucell = torch.stack([c.to(cdt)[self.f_cd2] for c in self.split_u(u)],
+                            dim=-1)
+        uq_f = torch.einsum("fqi,fid->fqd", self.f_phi2.to(cdt), ucell)
+        un = torch.einsum("fqd,fd->fq", uq_f, self.f_normals.to(cdt))
+        elem_s = -torch.einsum("fq,fq,fql,fqm->flm", self.f_wlen.to(cdt), un,
+                               self.f_phi1.to(cdt),
+                               self.f_phi1.to(cdt)) / self.nu
+        flat = vals.reshape(-1).clone()
+        flat.index_add_(0, self.kp_surf_pos, elem_s.reshape(-1))
+        return flat.reshape(vals.shape)
+
+    def picard_matrix_values(self, u: torch.Tensor, hi: bool = False,
+                             compute32: bool = False) -> torch.Tensor:
+        """A1 = nu * L + N(u) scalar values (applied to each component)."""
+        L = self.const_hi.L if hi else self.const.L
+        conv = self.convection_values(u, hi=hi, compute32=compute32)
+        return self.nu * L.vals.to(conv.dtype) + conv
+
+    def residual(self, u: torch.Tensor, p: torch.Tensor, hi: bool = True,
+                 compute32: bool = False
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Steady NS residual with zero body force and natural outflow:
+        ``ru_a = A1(u) u_a + DT_a p``, ``rp = sum_a D_a u_a`` (BC masking
+        by the caller).  ``hi`` selects the high-precision operators."""
+        A1 = self._pats(hi)[0].matrix(
+            self.picard_matrix_values(u, hi=hi, compute32=compute32))
+        c = self.const_hi if hi else self.const
+        comps = self.split_u(u)
+        ru = torch.cat([A1.mv(comps[a]) + c.DT[a].mv(p)
+                        for a in range(self.dim)])
+        rp = sum(c.D[a].mv(comps[a]) for a in range(self.dim))
+        return ru, rp

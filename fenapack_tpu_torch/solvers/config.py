@@ -1,0 +1,94 @@
+"""Nested solver configuration with dotted-key overrides.
+
+The subset of ``fenapack_tpu/solvers/config.py`` (plain dataclasses) that
+the port reads: every field here changes what a solve does.  The JAX
+package's other options (LU and lumped subsolves, the minres smoother,
+mixed-precision IR rounds, recycling, split assembly, SUPG) come back with
+the code that ports them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class MultigridConfig:
+    """Geometric multigrid V-cycles with damped Jacobi smoothing (the
+    velocity block; the pressure Ap when its method is ``gmg``)."""
+    smooth_iters: int = 2
+    cycles: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class SubsolveConfig(MultigridConfig):
+    """One SPD pressure solve (Ap or Mp).
+
+    methods:
+      ``chebyshev`` — fixed-iteration Jacobi-Chebyshev
+      ``gmg``       — geometric multigrid V-cycles (needs a mesh hierarchy)
+    """
+    method: str = "gmg"
+    iters: int = 10                      # chebyshev iterations
+    bounds: Optional[Tuple[float, float]] = None   # spectral bounds override
+
+
+@dataclasses.dataclass(frozen=True)
+class KrylovConfig:
+    """The outer f64 FGMRES solve around the compute-dtype preconditioner."""
+    maxiter: int = 100
+    # selective reorthogonalization threshold (0.0 = unconditional CGS2).
+    # eta > 0 runs the second Gram-Schmidt pass only when the first
+    # projection shrank |w| below eta * |w_pre| (Kahan-Parlett "twice is
+    # enough"); each skipped pass saves the two O(m n) projection/update
+    # ops.  Default 0.707 (1/sqrt 2, the classic safe threshold), which the
+    # JAX package adopted after an A/B on its TPU at identical iteration
+    # counts (results/r4_bench_eta{0,707}.json).
+    reorth_eta: float = 0.707
+    # compute the PER-STEP convection integrals of the high-precision
+    # operator in f32 and cast up, as the JAX package does: a 1e-7-perturbed
+    # integral is still a consistent discrete operator (matvec, true
+    # residual and preconditioner all read the same values).  Constant
+    # integrals (nu L, mass) remain exact f64.
+    hi_ops_f32: bool = True
+    # ALSO run the nonlinear true residual's convection integrals in f32
+    # (fem.assemble.NSAssembler.residual compute32).  The residual sets the
+    # attainable nonlinear floor (~1e-7 relative with f32 integrals), so
+    # keep False when converging past 1e-8.
+    hi_res_f32: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class PCDConfig:
+    variant: str = "BRM2"                # BRM1 | BRM2
+    ap: SubsolveConfig = SubsolveConfig(method="gmg")
+    # Jacobi-scaled P1 mass spectrum is mesh-uniform (Wathen's bounds):
+    # [1/2, 2] on triangles.  4 iterations at these bounds (min-max residual
+    # 4.3e-2) reproduce-or-beat oracle outer counts in the JAX package
+    # (step2d l0 BRM2 304@4 == oracle, l1 301@4 vs 302@6).
+    mp: SubsolveConfig = SubsolveConfig(method="chebyshev", iters=4,
+                                        bounds=(0.5, 2.5))
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverConfig:
+    krylov: KrylovConfig = KrylovConfig()
+    pcd: PCDConfig = PCDConfig()
+    velocity: MultigridConfig = MultigridConfig()
+    dtype: str = "float64"               # the preconditioner's compute dtype
+
+
+def override(cfg: Any, key: str, value: Any) -> Any:
+    """Return a copy of ``cfg`` with dotted ``key`` replaced, e.g.
+    ``override(cfg, "pcd.ap.cycles", 2)``.  An unknown key raises."""
+    head, _, rest = key.partition(".")
+    if rest:
+        sub = override(getattr(cfg, head), rest, value)
+        return dataclasses.replace(cfg, **{head: sub})
+    return dataclasses.replace(cfg, **{head: value})
+
+
+def overrides(cfg: Any, mapping: dict) -> Any:
+    for k, v in mapping.items():
+        cfg = override(cfg, k, v)
+    return cfg

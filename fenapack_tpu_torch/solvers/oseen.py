@@ -1,0 +1,210 @@
+"""The Oseen linear solver: FGMRES around the upper Schur fieldsplit with PCD.
+
+The port of ``fenapack_tpu/solvers/oseen.py::OseenSolver`` on the main
+path: Picard linearization, PCD Dirichlet rows, Ap by pressure multigrid or
+Chebyshev, Mp by Chebyshev, the velocity block by multigrid, and the
+single-round high-precision solve (the JAX package's ``krylov.hi_krylov``):
+f64 FGMRES with the f64 system matvec around a preconditioner in the
+compute dtype.
+
+Monolithic vector layout: ``x = [u_x (n2); u_y (n2); p (n1)]``.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..fem import mesh as meshmod
+from ..fem.dofmap import DirichletBC, merge_bcs
+from ..ops import subsolve
+from .config import SolverConfig, SubsolveConfig
+from .fieldsplit import make_fieldsplit_upper
+from .krylov import fgmres
+from .pcd import make_pcd_apply
+
+_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+class OseenSolver:
+    """PCD-preconditioned Oseen solves on one mesh (Picard linearization).
+
+    Parameters
+    ----------
+    asm : the assembler (constant operators and the device live here)
+    bcs : velocity Dirichlet BCs
+    config : solver configuration
+
+    The PCD Dirichlet dofs lie on the INFLOW facets for BRM1 and on the
+    OUTFLOW facets for BRM2 (fenapack demo convention).  The compute dtype
+    of the configuration must be the storage dtype of ``asm.const``.
+
+    Matrix products run in full precision: building a solver turns TF32
+    off for CUDA matmuls and cuDNN (the dense coarse solves are f32
+    matrix-vector products that TF32 would reduce to ~1e-3 accuracy).
+    """
+
+    def __init__(self, asm, bcs: Sequence[DirichletBC],
+                 config: SolverConfig = SolverConfig(),
+                 ap_hierarchy=None, velocity_hierarchy=None):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.asm = asm
+        self.config = config
+        self.dtype = dt = _DTYPES[config.dtype]
+        if asm.const.Ap.vals.dtype != dt:
+            raise ValueError(
+                f"config dtype {config.dtype} but the assembler's constants "
+                f"are {asm.const.Ap.vals.dtype}: set its block_dtype")
+        dev = asm.device
+        n2, n1 = asm.n2, asm.n1
+        self.d = asm.dim
+        self.n_u = self.d * n2
+        self.n = self.n_u + n1
+
+        bc_mask_u, bc_vals_u = merge_bcs(bcs, self.n_u)
+        self.bc_mask_u = torch.as_tensor(bc_mask_u, dtype=dt, device=dev)
+        self.bc_vals_u = torch.as_tensor(bc_vals_u, dtype=dt, device=dev)
+        self.free_u = 1.0 - self.bc_mask_u
+
+        pcd_marker = (meshmod.INFLOW if config.pcd.variant == "BRM1"
+                      else meshmod.OUTFLOW)
+        pcd_dofs = asm.W.Q.facet_dofs([pcd_marker])
+        if not pcd_dofs.shape[0]:
+            raise NotImplementedError("problems without PCD Dirichlet rows "
+                                      "(enclosed flow) are not ported yet")
+        mask_p = np.zeros(n1)
+        mask_p[pcd_dofs] = 1.0
+        self.pcd_marker = pcd_marker
+        self.pcd_mask = torch.as_tensor(mask_p, dtype=dt, device=dev)
+
+        c = asm.const
+        self._ap_factory = self._make_spd_solver(
+            c.Ap, asm.pat_p1, self.pcd_mask, config.pcd.ap,
+            hierarchy=ap_hierarchy)
+        self._mp_factory = self._make_spd_solver(
+            c.Mp, asm.pat_p1, None, config.pcd.mp)
+        self.ap_hierarchy = ap_hierarchy
+        self.velocity_hierarchy = velocity_hierarchy
+
+    # -------------------------------------------------------------- #
+    @staticmethod
+    def _masked_spd_matvec(op, mask: Optional[torch.Tensor]):
+        """Symmetric bc-elimination: free A free + I_bc."""
+        if mask is None:
+            return op.mv
+        free = 1.0 - mask
+        return lambda x: free * op.mv(free * x) + mask * x
+
+    def _make_spd_solver(self, op, pattern, mask, cfg: SubsolveConfig,
+                         hierarchy=None):
+        """Return a factory for the subsolver of an SPD pressure operator
+        (Ap or Mp): setup (spectral bounds) runs here, the closure is built
+        per pipeline."""
+        dt = self.dtype
+        if cfg.method == "chebyshev":
+            diag = op.diag_from(pattern.diag_pos)
+            if mask is not None:
+                diag = torch.where(mask > 0, torch.ones_like(diag), diag)
+            dinv = 1.0 / diag
+            mv = self._masked_spd_matvec(op, mask)
+            if cfg.bounds is not None:
+                lmin, lmax = cfg.bounds
+            else:
+                lmin, lmax = subsolve.power_bounds(mv, dinv, op.shape[0])
+            return lambda: subsolve.chebyshev_solver(mv, dinv, lmin, lmax,
+                                                     cfg.iters)
+        if cfg.method == "gmg":
+            if hierarchy is None:
+                raise ValueError("pcd.ap.method 'gmg' needs an ap_hierarchy")
+            hmarks = set(getattr(hierarchy, "pcd_markers", ()))
+            if hmarks != {self.pcd_marker}:
+                raise ValueError(
+                    f"pressure GMG pcd-marker mismatch: hierarchy built with "
+                    f"pcd_markers={sorted(hmarks)} but the solver's PCD "
+                    f"Dirichlet rows are [{self.pcd_marker}]")
+            from .gmg import make_gmg_solver
+            solve = make_gmg_solver(hierarchy, cfg, dt)
+            return lambda: solve
+        raise NotImplementedError(
+            f"subsolve method {cfg.method!r} is not ported")
+
+    def pcd_apply(self):
+        """The PCD apply ``pcd(kp, r_p)`` with fresh subsolve closures."""
+        return make_pcd_apply(self.config.pcd.variant, self._ap_factory(),
+                              self._mp_factory(), self.pcd_mask)
+
+    # -------------------------------------------------------------- #
+    def _operator_values_raw(self, wind: torch.Tensor, hi: bool = True):
+        """Picard operator values A1(wind) in the wind's precision class:
+        the high-precision operator runs its convection integrals in f32
+        when ``krylov.hi_ops_f32`` (as the JAX package does)."""
+        c32 = bool(hi) and self.config.krylov.hi_ops_f32
+        return self.asm.picard_matrix_values(wind, hi=hi, compute32=c32)
+
+    def _operator_values(self, wind: torch.Tensor) -> torch.Tensor:
+        return self._operator_values_raw(wind, hi=False).to(self.dtype)
+
+    def _matvec_factory(self, A1vals: torch.Tensor, hi: bool = False):
+        """Bc-masked monolithic matvec.  ``hi`` uses the high-precision
+        operators (f64 BSR under ``hi_block``: the K1 kernel on CUDA)."""
+        asm = self.asm
+        n2, n_u, d = asm.n2, self.n_u, self.d
+        c = asm.const_hi if hi else asm.const
+        A1 = (asm.pat_p2_hi if hi else asm.pat_p2).matrix(A1vals)
+        free_u = self.free_u.to(A1vals.dtype)
+        bc_u = self.bc_mask_u.to(A1vals.dtype)
+
+        def matvec(x):
+            xu = free_u * x[:n_u]
+            p = x[n_u:]
+            comps = [xu[a * n2:(a + 1) * n2] for a in range(d)]
+            ys = [A1.mv(comps[a]) + c.DT[a].mv(p) for a in range(d)]
+            yu = free_u * torch.cat(ys) + bc_u * x[:n_u]
+            yp = sum(c.D[a].mv(comps[a]) for a in range(d))
+            return torch.cat([yu, yp])
+        return matvec
+
+    def _velocity_solver(self, A1vals: torch.Tensor, wind: torch.Tensor):
+        """Velocity-block subsolve (multigrid) at the current wind."""
+        from .gmg import make_velocity_gmg_from_wind
+        return make_velocity_gmg_from_wind(
+            self.velocity_hierarchy, self.config.velocity,
+            wind.to(self.dtype), self.bc_mask_u, self.dtype,
+            fine_values=A1vals)
+
+    def _pipeline(self, wind: torch.Tensor):
+        """The preconditioner at ``wind`` in the compute dtype."""
+        cfg = self.config
+        c = self.asm.const
+        A1vals = self._operator_values(wind)
+        kp = self.asm.pat_p1.matrix(self.asm.kp_values(
+            wind, surface=(cfg.pcd.variant == "BRM2")).to(self.dtype))
+        a_solve = self._velocity_solver(A1vals, wind)
+        pcd = self.pcd_apply()
+        bt_mv = lambda p: torch.cat([c.DT[a].mv(p) for a in range(self.d)])
+        return make_fieldsplit_upper(self.n_u, a_solve,
+                                     lambda r_p: pcd(kp, r_p), bt_mv,
+                                     self.free_u)
+
+    # -------------------------------------------------------------- #
+    def make_ir_solve(self, rtol: float = 1e-8):
+        """Return ``ir(wind, b) -> (x, iters, true_resnorm, result)``: one
+        f64 FGMRES solve to ``rtol`` with the high-precision system matvec
+        and the compute-dtype preconditioner (cast f64 -> compute -> f64
+        around each apply), then the true residual in f64."""
+        dt_hi = self.asm.dtype
+        kcfg = self.config.krylov
+
+        def ir(wind: torch.Tensor, b: torch.Tensor):
+            A1h = self._operator_values_raw(wind.to(dt_hi), hi=True)
+            matvec_hi = self._matvec_factory(A1h, hi=True)
+            pc = self._pipeline(wind.to(self.dtype))
+            pc_hi = lambda r: pc(r.to(self.dtype)).to(dt_hi)
+            b64 = b.to(dt_hi)
+            res = fgmres(matvec_hi, pc_hi, b64, maxiter=kcfg.maxiter,
+                         rtol=rtol, reorth_eta=kcfg.reorth_eta)
+            rn = torch.linalg.norm(b64 - matvec_hi(res.x))
+            return res.x, res.iters, rn, res
+        return ir
