@@ -73,8 +73,8 @@ def build(level: int, *, device, dtype: str = "float32") -> NonlinearSolver:
     v_h = gmg.VelocityHierarchy(hier, NU, pdt, device=device,
                                 bc_markers=[meshmod.WALL, meshmod.INFLOW],
                                 fine_asm=asm, block_size=BLOCK)
-    return NonlinearSolver(asm, bcs, cfg, ap_hierarchy=ap_h,
-                           velocity_hierarchy=v_h)
+    return NonlinearSolver(asm, bcs, cfg, pcd_marker=meshmod.OUTFLOW,
+                           ap_hierarchy=ap_h, velocity_hierarchy=v_h)
 
 
 def _sync(device: torch.device):

@@ -5,8 +5,9 @@ tensors are batched matrix products over quadrature points, scattered into
 static-sparsity operators with one ``index_add_`` per operator.  Constant
 operators (viscous Laplacian L, divergence D and gradient DT, pressure mass
 Mp and stiffness Ap) are assembled once; the wind-dependent ones (convection
-N(w), pressure convection Kp with the BRM2 inflow surface term) are plain
-functions of the current velocity iterate.
+N(w), the Newton reaction blocks R_ab(w), pressure convection Kp with the
+BRM2 inflow surface term) are plain functions of the current velocity
+iterate.
 
 Precision follows the JAX package: a wind of lower precision than the
 assembler is promoted before the element integrals, and ``compute32`` runs
@@ -231,7 +232,18 @@ class NSAssembler:
         for q in range(nq):
             for m in range(nb1):
                 B1[q * nb1 + m, m::nb1] = phi1[q]
-        return dict(P=P, B2=B2, B1=B1,
+        # newton reaction: du_(q,a,k) = ucell_flat @ Pg,
+        # Pg[(a,i), (q*d+a)*d+k] = dphi2_qik
+        Pg = np.zeros((d * nb2, nq * d * d))
+        for a in range(d):
+            for q in range(nq):
+                for k in range(d):
+                    Pg[a * nb2:(a + 1) * nb2, (q * d + a) * d + k] = \
+                        dphi2[q, :, k]
+        # Bp[q, (i,j)] = phi2_qi phi2_qj (mass-like q-contraction)
+        Bp = np.stack([np.outer(phi2[q], phi2[q]).ravel()
+                       for q in range(nq)])
+        return dict(P=P, B2=B2, B1=B1, Pg=Pg, Bp=Bp,
                     Jf=h["Jinv"].reshape(self.nc, d * d),
                     g1f=h["g1"].reshape(self.nc, nb1 * d))
 
@@ -273,6 +285,32 @@ class NSAssembler:
         t = torch.stack(cols, dim=2).reshape(uqf.shape[0], nq * d)
         vals = self._pats(hi)[0].assemble_values(t @ self._tab("B2", cdt))
         return vals.to(self.dtype) if compute32 else vals
+
+    def newton_reaction_values(self, u: torch.Tensor, hi: bool = False,
+                               compute32: bool = False) -> torch.Tensor:
+        """(d, d, *value_shape) values of the Newton reaction blocks
+        R_ab[i,j] = int phi_j (d_b u_a) phi_i.  ``compute32``: see
+        :meth:`convection_values`."""
+        d, nq = self.dim, self.nq
+        pat = self._pats(hi)[0]
+        cdt = (torch.float32 if compute32
+               else torch.promote_types(u.dtype, self.dtype))
+        ucf = torch.cat([c[self.cd2] for c in self.split_u(u)],
+                        dim=1).to(cdt)
+        du = ucf @ self._tab("Pg", cdt)                  # (nc, nq*d*d)
+        Jf = self._tab("Jf", cdt)
+        wdet = self.wdet.to(cdt)
+        Bp = self._tab("Bp", cdt)
+        outs = []
+        for a in range(d):
+            for b in range(d):
+                gu = 0.0
+                for k in range(d):
+                    # du column (q*d + a)*d + k: stride d*d over q
+                    gu = gu + du[:, a * d + k::d * d] * Jf[:, k * d + b, None]
+                vals = pat.assemble_values((wdet * gu) @ Bp)
+                outs.append(vals.to(self.dtype) if compute32 else vals)
+        return torch.stack(outs).reshape((d, d) + tuple(pat.value_shape))
 
     def kp_values(self, u: torch.Tensor, surface: bool = False
                   ) -> torch.Tensor:

@@ -1,10 +1,11 @@
 """Triangle meshes for the PyTorch port (host-side NumPy).
 
 The 2D part of ``fenapack_tpu/fem/mesh.py``, copied: structured
-triangulations of axis-aligned box unions (rectangle, backward-facing step),
-uniform red refinement with parent tracking (the geometric-multigrid
-prolongation stencil), edge/facet topology and boundary facet markers.  The
-solver only sees the frozen index and coordinate arrays built here.
+triangulations of axis-aligned box unions (rectangle, backward-facing step,
+lid-driven cavity), uniform red refinement with parent tracking (the
+geometric-multigrid prolongation stencil), edge/facet topology and boundary
+facet markers.  The solver only sees the frozen index and coordinate arrays
+built here.
 """
 from __future__ import annotations
 
@@ -281,3 +282,14 @@ def backward_step_mesh(level: int = 0, length: float = 5.0) -> TriMesh:
     })
     return mesh
 
+
+def cavity_mesh(level: int = 0) -> TriMesh:
+    """Lid-driven cavity on [0,1]^2; lid = top (marked INFLOW for PCD BCs)."""
+    n = 8 * (2 ** level)
+    mesh = rectangle_mesh(0.0, 0.0, 1.0, 1.0, n, n)
+    tol = 1e-9
+    mesh.mark_boundary({
+        WALL: lambda x: np.ones(x.shape[0], dtype=bool),
+        INFLOW: lambda x: x[:, 1] > 1.0 - tol,
+    })
+    return mesh

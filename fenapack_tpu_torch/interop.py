@@ -19,7 +19,8 @@ from .ops.sparse import ELL, BlockELL
 def operator(arrays: Mapping[str, np.ndarray], *, device,
              dtype: Optional[torch.dtype] = None):
     """A :class:`BlockELL` from ``nbr``/``tiles``/``n_rows``/``n_cols`` or an
-    :class:`ELL` from ``cols``/``vals``/``n_cols``."""
+    :class:`ELL` from ``cols``/``vals``/``n_cols`` (int32 columns, the
+    layout of both packages)."""
     if "nbr" in arrays:
         return BlockELL(
             torch.as_tensor(np.array(arrays["nbr"]), dtype=torch.int32,
@@ -27,7 +28,7 @@ def operator(arrays: Mapping[str, np.ndarray], *, device,
             torch.as_tensor(np.array(arrays["tiles"]), dtype=dtype,
                             device=device),
             int(arrays["n_rows"]), int(arrays["n_cols"]))
-    return ELL(torch.as_tensor(np.array(arrays["cols"]), dtype=torch.int64,
+    return ELL(torch.as_tensor(np.array(arrays["cols"]), dtype=torch.int32,
                                device=device),
                torch.as_tensor(np.array(arrays["vals"]), dtype=dtype,
                                device=device),
@@ -55,6 +56,17 @@ def const_operators(arrays: Mapping[str, object], *, device,
         Mp=op(arrays["Mp"]), Ap=op(arrays["Ap"]),
         D=tuple(op(a) for a in arrays.get("D", ())),
         DT=tuple(op(a) for a in arrays.get("DT", ())))
+
+
+def reaction_values(R: np.ndarray, *, device,
+                    dtype=torch.float64) -> torch.Tensor:
+    """Newton reaction blocks ``R[a, b]`` of shape (d, d, *value_shape), as
+    ``NSAssembler.newton_reaction_values`` returns them in both packages."""
+    R = np.array(R)
+    if R.ndim < 3 or R.shape[0] != R.shape[1]:
+        raise ValueError(f"expected (d, d, ...) reaction values, got "
+                         f"{R.shape}")
+    return torch.as_tensor(R, dtype=dtype, device=device)
 
 
 def state(w: np.ndarray, *, device, dtype=torch.float64) -> torch.Tensor:

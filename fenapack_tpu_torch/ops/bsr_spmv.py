@@ -8,29 +8,16 @@ BSR kernels of ``fenapack_tpu/ops/pallas_spmv.py`` that the main path runs:
 :func:`bsr_spmv` takes the plain PyTorch version only for tensors on the CPU.
 For a CUDA tensor it launches the kernel or raises; nothing falls back.
 
-The kernel library is compiled with ``nvcc`` for ``sm_90a`` at first use
-into ``build/kernels/`` at the root of the checkout (listed in
-``.gitignore``), under a name keyed by a hash of the source and flags.
+The kernel library is built at first use by :mod:`.kernels`.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
 
 import torch
 
-_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-SOURCE = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "csrc", "bsr_spmv.cu")
-_BUILD = os.path.join(_ROOT, "build", "kernels")
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+from . import kernels
+
 MAX_RHS = 8                       # kMaxRhs in csrc/bsr_spmv.cu
 _NAMES = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -45,60 +32,18 @@ def reset_launches():
         launches[key] = 0
 
 
-_lock = threading.Lock()
-_lib = {}
+_fns = {}
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the BSR SpMV kernel needs the "
-                           "CUDA toolkit (set CUDA_HOME)")
-    return found
-
-
-def library_path() -> str:
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(_NVCC_FLAGS).encode())
-    return os.path.join(_BUILD, f"libbsr_spmv-{digest.hexdigest()[:16]}.so")
-
-
-def build_library() -> float:
-    """Compile the kernel library if it is not built yet; return the
-    seconds spent compiling (0.0 when it was already there)."""
-    so = library_path()
-    if os.path.exists(so):
-        return 0.0
-    os.makedirs(_BUILD, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, SOURCE, "-o", tmp],
-                          capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
-    os.replace(tmp, so)
-    return time.perf_counter() - t0
-
-
-def _library():
-    with _lock:
-        if "lib" not in _lib:
-            build_library()
-            lib = ctypes.CDLL(library_path())
-            for name in ("bsr_spmv_f32", "bsr_spmv_f64"):
-                fn = getattr(lib, name)
-                fn.restype = ctypes.c_int
-                fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                               + [ctypes.c_void_p])
-            _lib["lib"] = lib
-        return _lib["lib"]
+def _kernel(name: str):
+    """The C entry point ``bsr_spmv_<name>`` with its argument types set."""
+    if name not in _fns:
+        fn = getattr(kernels.load("bsr_spmv"), "bsr_spmv_" + name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
+        _fns[name] = fn
+    return _fns[name]
 
 
 def bsr_spmv_plain(nbr: torch.Tensor, tiles: torch.Tensor, x: torch.Tensor,
@@ -160,7 +105,7 @@ def bsr_spmv(nbr: torch.Tensor, tiles: torch.Tensor, x: torch.Tensor,
             and x.is_contiguous()):
         raise ValueError("nbr, tiles and x must be contiguous")
     name = _NAMES[tiles.dtype]
-    fn = getattr(_library(), "bsr_spmv_" + name)
+    fn = _kernel(name)
     y = torch.empty((n_rows,) + tuple(x.shape[1:]), dtype=x.dtype,
                     device=x.device)
     _, b, mb = tiles.shape

@@ -5,11 +5,16 @@ built once on the host (NumPy); assembling new values is one scatter-add of
 element values (``index_add_``).  Two layouts share one interface
 (``pattern.matrix(vals) -> op`` with ``op.mv/with_vals/diag_from``):
 
-  * :class:`SparsityPattern` / :class:`ELL`: per-row padded column lists.
+  * :class:`SparsityPattern` / :class:`ELL`: per-row padded column lists
+    (int32, the JAX package's layout).  Its product is the ELL SpMV kernel
+    of :mod:`fenapack_tpu_torch.ops.ell_spmv` (K3).
   * :class:`BlockSparsityPattern` / :class:`BlockELL`: block-sparse rows
     (BSR) of dense ``b x b`` tiles stored flat,
     ``tiles[I, i, j*b + c] = A[I*b + i, nbr[I, j]*b + c]``.  Its product is
-    the BSR SpMV kernel of :mod:`fenapack_tpu_torch.ops.bsr_spmv`.
+    the BSR SpMV kernel of :mod:`fenapack_tpu_torch.ops.bsr_spmv` (K1, K2).
+
+On a CUDA tensor both products launch their hand-written kernel; on a CPU
+tensor they run the kernel's plain PyTorch version.
 
 Patterns are memoized on disk in the JAX package's format (``.npz`` keyed by
 a hash of the dofmaps), by default under ``build/patterns`` at the root of
@@ -26,10 +31,11 @@ import numpy as np
 import torch
 
 from .bsr_spmv import bsr_spmv
+from .ell_spmv import ell_spmv
 
 
 class ELL:
-    """ELL sparse matrix: ``cols`` (n_rows, K) int64, ``vals`` same shape.
+    """ELL sparse matrix: ``cols`` (n_rows, K) int32, ``vals`` same shape.
     Padded slots have ``col = 0`` and ``val = 0``."""
 
     def __init__(self, cols: torch.Tensor, vals: torch.Tensor, n_cols: int):
@@ -44,10 +50,7 @@ class ELL:
 
     def mv(self, x: torch.Tensor) -> torch.Tensor:
         """y = A @ x for x of shape (n_cols,) or (n_cols, k)."""
-        g = x[self.cols]
-        if x.dim() == 1:
-            return torch.sum(self.vals * g, dim=1)
-        return torch.einsum("nk,nkb->nb", self.vals, g)
+        return ell_spmv(self.cols, self.vals, x.contiguous(), self.n_cols)
 
     def diag_from(self, diag_pos: torch.Tensor) -> torch.Tensor:
         return self.vals.reshape(-1)[diag_pos]
@@ -134,7 +137,7 @@ class SparsityPattern:
 
     def _set_cols(self, ell_cols):
         self._ell_cols_np = ell_cols
-        self.cols = torch.as_tensor(ell_cols, dtype=torch.int64,
+        self.cols = torch.as_tensor(ell_cols, dtype=torch.int32,
                                     device=self.device)
 
     @property

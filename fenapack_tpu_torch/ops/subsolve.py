@@ -82,12 +82,20 @@ def dense_lu_solver(A_dense: torch.Tensor) -> Callable:
 
 
 def masked_spd_solver_dense(op, pattern, bc_mask: torch.Tensor,
-                            dtype=None) -> Callable:
+                            dtype=None, nullspace: bool = False) -> Callable:
     """Dense exact solver of the symmetric bc-eliminated operator
-    ``free A free + I_bc``."""
+    ``free A free + I_bc``.
+
+    ``nullspace=True`` (enclosed flow: pure-Neumann pressure Laplacian) adds
+    the rank-1 constant shift ``(1/n_free) free free^T`` so the inverse
+    exists; with the constant-mode projections of the PCD apply it acts as
+    the pseudo-inverse."""
     dt = dtype or op.vals.dtype
     A = pattern.to_dense(op.vals).to(dt)
     bc = bc_mask.to(dt)
     free = 1.0 - bc
     A = free[:, None] * A * free[None, :] + torch.diag(bc)
+    if nullspace:
+        n_free = torch.clamp(torch.sum(free), min=1.0)
+        A = A + torch.outer(free, free) / n_free
     return dense_lu_solver(A)

@@ -2,9 +2,9 @@
 
 The subset of ``fenapack_tpu/solvers/config.py`` (plain dataclasses) that
 the port reads: every field here changes what a solve does.  The JAX
-package's other options (LU and lumped subsolves, the minres smoother,
-mixed-precision IR rounds, recycling, split assembly, SUPG) come back with
-the code that ports them.
+package's other options (lumped and Chebyshev velocity subsolves, the minres
+smoother, mixed-precision IR rounds, recycling, split assembly, SUPG) come
+back with the code that ports them.
 """
 from __future__ import annotations
 
@@ -21,12 +21,24 @@ class MultigridConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class VelocityConfig(MultigridConfig):
+    """The velocity-block subsolve.
+
+    methods:
+      ``gmg`` — geometric multigrid V-cycles (needs a velocity hierarchy)
+      ``lu``  — exact dense inverse (validation scale)
+    """
+    method: str = "gmg"
+
+
+@dataclasses.dataclass(frozen=True)
 class SubsolveConfig(MultigridConfig):
     """One SPD pressure solve (Ap or Mp).
 
     methods:
       ``chebyshev`` — fixed-iteration Jacobi-Chebyshev
       ``gmg``       — geometric multigrid V-cycles (needs a mesh hierarchy)
+      ``lu``        — exact dense inverse (validation scale)
     """
     method: str = "gmg"
     iters: int = 10                      # chebyshev iterations
@@ -35,7 +47,11 @@ class SubsolveConfig(MultigridConfig):
 
 @dataclasses.dataclass(frozen=True)
 class KrylovConfig:
-    """The outer f64 FGMRES solve around the compute-dtype preconditioner."""
+    """The outer FGMRES solve around the compute-dtype preconditioner.
+    ``rtol`` is the relative tolerance of :meth:`OseenSolver.solve`; the
+    high-precision solve of :meth:`OseenSolver.make_ir_solve` takes its own
+    ``rtol``."""
+    rtol: float = 1e-8
     maxiter: int = 100
     # selective reorthogonalization threshold (0.0 = unconditional CGS2).
     # eta > 0 runs the second Gram-Schmidt pass only when the first
@@ -74,7 +90,7 @@ class PCDConfig:
 class SolverConfig:
     krylov: KrylovConfig = KrylovConfig()
     pcd: PCDConfig = PCDConfig()
-    velocity: MultigridConfig = MultigridConfig()
+    velocity: VelocityConfig = VelocityConfig()
     dtype: str = "float64"               # the preconditioner's compute dtype
 
 

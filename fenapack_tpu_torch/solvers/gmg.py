@@ -11,8 +11,11 @@ solve.
     refine(M)*: the wind moves fine -> coarse by injection (a slice), and
     P2 prolongation interpolates each fine edge midpoint with the coarse
     basis of its parent cell.
-  * The velocity operator is re-assembled on every level from the injected
-    wind, so each V-cycle follows the current nonlinear iterate.
+  * The velocity operator (Picard, or Picard plus the Newton reaction
+    blocks) is re-assembled on every level from the injected wind, so each
+    V-cycle follows the current nonlinear iterate.
+  * Enclosed flow (no PCD Dirichlet rows) gets a pure-Neumann pressure
+    hierarchy whose coarse solve is the dense inverse of ``Ap + 1/n``.
 
 With ``block_size`` the transfers are stored as BSR matrices and applied by
 the BSR SpMV kernel; without it they are gathers and scatter-adds.
@@ -226,12 +229,17 @@ def make_gmg_solver(hierarchy: PressureHierarchy, cfg: MultigridConfig,
         masks.append(mask)
 
     lev0 = hierarchy.levels[0]
-    if lev0.Ap.shape[0] > DENSE_MAX or lev0.mask is None:
+    if lev0.Ap.shape[0] > DENSE_MAX:
         raise NotImplementedError(
-            "pressure GMG needs a coarse level of at most "
-            f"{DENSE_MAX} dofs with PCD Dirichlet rows (dense masked solve)")
-    coarse = subsolve.masked_spd_solver_dense(lev0.Ap, lev0.asm.pat_p1,
-                                              lev0.mask, dtype)
+            f"pressure GMG needs a coarse level of at most {DENSE_MAX} dofs "
+            "(dense coarse solve)")
+    if lev0.mask is None:
+        # enclosed flow: regularize the singular coarse Neumann operator
+        A = lev0.asm.pat_p1.to_dense(lev0.Ap.vals).to(dtype)
+        coarse = subsolve.dense_lu_solver(A + 1.0 / A.shape[0])
+    else:
+        coarse = subsolve.masked_spd_solver_dense(lev0.Ap, lev0.asm.pat_p1,
+                                                  lev0.mask, dtype)
     vcycle = make_vcycle(matvecs, dinvs, hierarchy.transfers, coarse, masks,
                          smooth_iters=cfg.smooth_iters, cycles=cfg.cycles)
     n_hier = hierarchy.levels[-1].Ap.shape[0]
@@ -366,11 +374,24 @@ def _velocity_level_masks(vh: VelocityHierarchy, bc_mask_u_fine, d: int):
             for l in range(L)]
 
 
+def dense_velocity_block(pattern, A1vals: torch.Tensor,
+                         R: Optional[torch.Tensor], d: int) -> torch.Tensor:
+    """Dense (d*n2, d*n2) velocity block: ``A1`` on each diagonal block,
+    plus the Newton reaction blocks ``R[a, b]`` when given."""
+    A = torch.block_diag(*([pattern.to_dense(A1vals)] * d))
+    if R is not None:
+        A = A + torch.cat([torch.cat([pattern.to_dense(R[a, b])
+                                      for b in range(d)], dim=1)
+                           for a in range(d)], dim=0)
+    return A
+
+
 def velocity_gmg_values(vh: VelocityHierarchy, wind_fine: torch.Tensor,
                         bc_mask_u_fine: torch.Tensor, dtype,
-                        fine_values: Optional[torch.Tensor] = None):
-    """Assembly half of the velocity V-cycle: the Picard operator values of
-    every level (the fine one is ``fine_values`` when given) and the dense
+                        newton: bool = False, fine_values=None):
+    """Assembly half of the velocity V-cycle: the operator values ``(A1,
+    R)`` of every level (``R`` the Newton reaction blocks, None for
+    Picard; the fine level is ``fine_values`` when given) and the dense
     inverse of the masked coarse operator."""
     L = len(vh.asms)
     d = vh.asms[-1].dim
@@ -380,17 +401,24 @@ def velocity_gmg_values(vh: VelocityHierarchy, wind_fine: torch.Tensor,
         n2f = vh.asms[l + 1].n2
         winds[l] = torch.cat([vh.transfers[l].inject(
             winds[l + 1][a * n2f:(a + 1) * n2f]) for a in range(d)])
-    levels = [asm.picard_matrix_values(winds[l]).to(dtype)
+
+    def level_values(asm, wl):
+        R = asm.newton_reaction_values(wl).to(dtype) if newton else None
+        return asm.picard_matrix_values(wl).to(dtype), R
+
+    levels = [level_values(asm, winds[l])
               for l, asm in enumerate(vh.asms[:-1])]
-    levels.append(fine_values.to(dtype) if fine_values is not None
-                  else vh.asms[-1].picard_matrix_values(winds[-1]).to(dtype))
+    if fine_values is not None:
+        A1f, Rf = fine_values
+        levels.append((A1f.to(dtype), None if Rf is None else Rf.to(dtype)))
+    else:
+        levels.append(level_values(vh.asms[-1], winds[-1]))
 
     asm0 = vh.asms[0]
     if d * asm0.n2 > DENSE_MAX:
         raise NotImplementedError(
             f"velocity GMG needs a coarse level of at most {DENSE_MAX} dofs")
-    A1 = asm0.pat_p2.to_dense(levels[0])
-    A = torch.block_diag(*([A1] * d))
+    A = dense_velocity_block(asm0.pat_p2, *levels[0], d)
     mask0 = _velocity_level_masks(vh, bc_mask_u_fine, d)[0]
     free0 = 1.0 - mask0
     A = free0[:, None] * A * free0[None, :] + torch.diag(mask0)
@@ -403,21 +431,34 @@ def make_velocity_gmg_from_values(vh: VelocityHierarchy,
                                   omega: float = 0.6) -> Callable:
     """Closure half of the velocity V-cycle, from
     :func:`velocity_gmg_values` output.  Each component is one single-RHS
-    product with the level's scalar operator."""
+    product with the level's scalar operator, plus one per Newton reaction
+    block."""
     d = vh.asms[-1].dim
     level_masks = _velocity_level_masks(vh, bc_mask_u_fine, d)
     matvecs, dinvs, vtransfers = [], [], []
     for l, asm in enumerate(vh.asms):
         n2, mask_u = asm.n2, level_masks[l]
         free = 1.0 - mask_u
-        A1 = asm.pat_p2.matrix(vals["levels"][l])
+        A1v, Rv = vals["levels"][l]
+        A1 = asm.pat_p2.matrix(A1v)
+        R = (None if Rv is None else
+             [[asm.pat_p2.matrix(Rv[a, b]) for b in range(d)]
+              for a in range(d)])
 
-        def mv(x, A1=A1, n2=n2, free=free, mask=mask_u):
+        def mv(x, A1=A1, R=R, n2=n2, free=free, mask=mask_u):
             xf = free * x
-            ys = [A1.mv(xf[a * n2:(a + 1) * n2]) for a in range(d)]
+            comps = [xf[a * n2:(a + 1) * n2] for a in range(d)]
+            ys = [A1.mv(comps[a]) for a in range(d)]
+            if R is not None:
+                for a in range(d):
+                    for b in range(d):
+                        ys[a] = ys[a] + R[a][b].mv(comps[b])
             return free * torch.cat(ys) + mask * x
 
-        diag = torch.cat([A1.diag_from(asm.pat_p2.diag_pos)] * d)
+        diag1 = A1.diag_from(asm.pat_p2.diag_pos)
+        diag = torch.cat([diag1 if R is None else
+                          diag1 + R[a][a].diag_from(asm.pat_p2.diag_pos)
+                          for a in range(d)])
         diag = torch.where(mask_u > 0, torch.ones_like(diag), diag)
         matvecs.append(mv)
         dinvs.append(1.0 / diag)
@@ -433,12 +474,12 @@ def make_velocity_gmg_from_values(vh: VelocityHierarchy,
 def make_velocity_gmg_from_wind(vh: VelocityHierarchy, cfg: MultigridConfig,
                                 wind_fine: torch.Tensor,
                                 bc_mask_u_fine: torch.Tensor, dtype,
-                                omega: float = 0.6,
-                                fine_values: Optional[torch.Tensor] = None
-                                ) -> Callable:
+                                omega: float = 0.6, newton: bool = False,
+                                fine_values=None) -> Callable:
     """V-cycle preconditioner for the velocity block, re-discretizing the
-    Picard operator on every level from the injected wind."""
+    Picard (``newton``: plus reaction) operator on every level from the
+    injected wind.  ``fine_values`` is the fine level's ``(A1, R)``."""
     vals = velocity_gmg_values(vh, wind_fine, bc_mask_u_fine, dtype,
-                               fine_values=fine_values)
+                               newton=newton, fine_values=fine_values)
     return make_velocity_gmg_from_values(vh, cfg, vals, bc_mask_u_fine,
                                          omega=omega)

@@ -1,15 +1,22 @@
-"""Picard driver with Anderson mixing, the port of
-``fenapack_tpu/solvers/nonlinear.py::NonlinearSolver.make_full_solve``.
+"""Nonlinear drivers, the port of ``fenapack_tpu/solvers/nonlinear.py``:
 
-The JAX package fuses the whole nonlinear solve into one device program
-(``lax.while_loop`` over steps, ``lax.cond`` for the converged check); here
-it is a Python loop over Picard steps, and each step reads its residual
-norm on the host.
+  * :meth:`NonlinearSolver.solve`: Picard or Newton steps, each one
+    :meth:`OseenSolver.solve` in the compute dtype (the driver of the model
+    entry points and of Reynolds continuation);
+  * :meth:`NonlinearSolver.make_full_solve`: Picard with Anderson mixing,
+    each step one high-precision solve (the headline benchmark's driver).
+
+For enclosed flow (no outflow) the pressure is defined up to a constant:
+the residual's continuity part is projected onto zero mean, and each
+update's pressure is shifted to zero mean.  The JAX package fuses the full
+solve into one device program (``lax.while_loop``); here both drivers are
+Python loops over steps, and each step reads its residual norm on the host.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence
+import time
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -17,6 +24,8 @@ import torch
 from ..fem.dofmap import DirichletBC
 from .config import SolverConfig
 from .oseen import OseenSolver
+
+_ATOL = 1e-12       # absolute floor of the nonlinear residual test
 
 
 @dataclasses.dataclass
@@ -31,14 +40,36 @@ class FullSolveResult:
     host_syncs: int                 # host reads of device values
 
 
+@dataclasses.dataclass
+class NonlinearResult:
+    """Outcome of :meth:`NonlinearSolver.solve`."""
+    w: torch.Tensor                 # final state [u_x; u_y; p]
+    nonlinear_res: List[float]      # residual norms, steps + 1 if converged
+    linear_iters: List[int]         # FGMRES iterations per step
+    linear_resnorms: List[np.ndarray]   # FGMRES residual estimates per step
+    converged: bool
+    wall_time: float
+    lin_rel: List[float]            # true relative residual of each solve
+
+    @property
+    def total_linear_iters(self) -> int:
+        return int(sum(self.linear_iters))
+
+
 class NonlinearSolver:
-    """Picard driver around :class:`OseenSolver`."""
+    """Picard/Newton driver around :class:`OseenSolver`."""
 
     def __init__(self, asm, bcs: Sequence[DirichletBC],
-                 config: SolverConfig = SolverConfig(),
+                 config: SolverConfig = SolverConfig(), *,
+                 pcd_marker: Optional[int],
+                 linearization: str = "picard", enclosed: bool = False,
                  ap_hierarchy=None, velocity_hierarchy=None):
         self.asm = asm
-        self.oseen = OseenSolver(asm, bcs, config, ap_hierarchy=ap_hierarchy,
+        self.enclosed = enclosed
+        self.oseen = OseenSolver(asm, bcs, config, pcd_marker=pcd_marker,
+                                 linearization=linearization,
+                                 enclosed=enclosed,
+                                 ap_hierarchy=ap_hierarchy,
                                  velocity_hierarchy=velocity_hierarchy)
         self.n_u, self.n = self.oseen.n_u, self.oseen.n
 
@@ -50,15 +81,55 @@ class NonlinearSolver:
         return w
 
     def residual_of(self, w: torch.Tensor):
-        """High-precision residual F(w) (velocity Dirichlet rows zeroed) and
+        """High-precision residual F(w) (velocity Dirichlet rows zeroed;
+        for enclosed flow the continuity part projected onto zero mean) and
         its norm as a 0-dim tensor."""
         asm, n_u = self.asm, self.n_u
         dt_hi = asm.dtype
         c32 = self.oseen.config.krylov.hi_res_f32
         ru, rp = asm.residual(w[:n_u].to(dt_hi), w[n_u:].to(dt_hi),
                               compute32=c32)
+        if self.enclosed:
+            rp = rp - torch.mean(rp)
         F = torch.cat([self.oseen.free_u.to(dt_hi) * ru, rp])
         return F, torch.linalg.norm(F)
+
+    def solve(self, w0: Optional[torch.Tensor] = None, *, rtol: float = 1e-5,
+              max_steps: int = 25) -> NonlinearResult:
+        """Picard or Newton steps ``w += dw`` from ``w0`` (default the
+        initial state), each ``dw`` one :meth:`OseenSolver.solve` of
+        ``J(w) dw = -F(w)``, until ``|F| <= max(rtol * |F_0|, 1e-12)`` (the
+        JAX package's default absolute floor).  The state is carried in the
+        compute dtype."""
+        t0 = time.perf_counter()
+        o = self.oseen
+        n_u = self.n_u
+        w = self.initial_state() if w0 is None else w0.to(o.dtype)
+        res_hist, it_hist, rn_hist, lin_rel = [], [], [], []
+        r0, converged = None, False
+        for _ in range(max_steps):
+            F = self.residual_of(w)[0].to(o.dtype)
+            rnorm = float(torch.linalg.norm(F))
+            res_hist.append(rnorm)
+            if r0 is None:
+                r0 = rnorm if rnorm > 0 else 1.0
+            if rnorm <= max(rtol * r0, _ATOL):
+                converged = True
+                break
+            result, matvec = o.solve(w[:n_u], -F)
+            it_hist.append(int(result.iters))
+            rn_hist.append(result.resnorms)
+            lin_rel.append(float(torch.linalg.norm(-F - matvec(result.x)))
+                           / max(result.bnorm, 1e-300))
+            dw = result.x
+            if self.enclosed:
+                dw = torch.cat([dw[:n_u], dw[n_u:] - torch.mean(dw[n_u:])])
+            w = w + dw
+        return NonlinearResult(w=w, nonlinear_res=res_hist,
+                               linear_iters=it_hist, linear_resnorms=rn_hist,
+                               converged=converged,
+                               wall_time=time.perf_counter() - t0,
+                               lin_rel=lin_rel)
 
     def make_full_solve(self, rtol: float = 1e-5, rtol_lin: float = 1e-8,
                         max_steps: int = 25, anderson: int = 0):

@@ -1,11 +1,14 @@
 """The Oseen linear solver: FGMRES around the upper Schur fieldsplit with PCD.
 
-The port of ``fenapack_tpu/solvers/oseen.py::OseenSolver`` on the main
-path: Picard linearization, PCD Dirichlet rows, Ap by pressure multigrid or
-Chebyshev, Mp by Chebyshev, the velocity block by multigrid, and the
-single-round high-precision solve (the JAX package's ``krylov.hi_krylov``):
-f64 FGMRES with the f64 system matvec around a preconditioner in the
-compute dtype.
+The port of ``fenapack_tpu/solvers/oseen.py::OseenSolver``: Picard or
+Newton linearization (the Newton operator adds the reaction blocks R_ab to
+the velocity block), PCD Dirichlet rows or enclosed flow (constant pressure
+nullspace), Ap by pressure multigrid, Chebyshev or dense LU, Mp by
+Chebyshev, the velocity block by multigrid or dense LU.  Two solves:
+:meth:`OseenSolver.solve`, FGMRES in the compute dtype to ``krylov.rtol``,
+and the single-round high-precision solve of :meth:`make_ir_solve` (the JAX
+package's ``krylov.hi_krylov``): f64 FGMRES with the f64 system matvec
+around a preconditioner in the compute dtype.
 
 Monolithic vector layout: ``x = [u_x (n2); u_y (n2); p (n1)]``.
 """
@@ -16,7 +19,6 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..fem import mesh as meshmod
 from ..fem.dofmap import DirichletBC, merge_bcs
 from ..ops import subsolve
 from .config import SolverConfig, SubsolveConfig
@@ -28,17 +30,21 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
 class OseenSolver:
-    """PCD-preconditioned Oseen solves on one mesh (Picard linearization).
+    """PCD-preconditioned Oseen solves on one mesh.
 
     Parameters
     ----------
     asm : the assembler (constant operators and the device live here)
     bcs : velocity Dirichlet BCs
     config : solver configuration
+    linearization : "picard" | "newton" (selects the operator)
+    enclosed : no outflow, pressure defined up to a constant (cavity);
+        without PCD Dirichlet rows the Ap solve projects out the constant
+    pcd_marker : facet marker holding the PCD Dirichlet dofs, None for
+        none (the caller decides: ``models`` through ``pcd_marker_for``)
 
-    The PCD Dirichlet dofs lie on the INFLOW facets for BRM1 and on the
-    OUTFLOW facets for BRM2 (fenapack demo convention).  The compute dtype
-    of the configuration must be the storage dtype of ``asm.const``.
+    The compute dtype of the configuration must be the storage dtype of
+    ``asm.const``.
 
     Matrix products run in full precision: building a solver turns TF32
     off for CUDA matmuls and cuDNN (the dense coarse solves are f32
@@ -46,12 +52,17 @@ class OseenSolver:
     """
 
     def __init__(self, asm, bcs: Sequence[DirichletBC],
-                 config: SolverConfig = SolverConfig(),
+                 config: SolverConfig = SolverConfig(), *,
+                 pcd_marker: Optional[int],
+                 linearization: str = "picard", enclosed: bool = False,
                  ap_hierarchy=None, velocity_hierarchy=None):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        if linearization not in ("picard", "newton"):
+            raise ValueError(f"unknown linearization {linearization!r}")
         self.asm = asm
         self.config = config
+        self.linearization = linearization
         self.dtype = dt = _DTYPES[config.dtype]
         if asm.const.Ap.vals.dtype != dt:
             raise ValueError(
@@ -68,21 +79,22 @@ class OseenSolver:
         self.bc_vals_u = torch.as_tensor(bc_vals_u, dtype=dt, device=dev)
         self.free_u = 1.0 - self.bc_mask_u
 
-        pcd_marker = (meshmod.INFLOW if config.pcd.variant == "BRM1"
-                      else meshmod.OUTFLOW)
-        pcd_dofs = asm.W.Q.facet_dofs([pcd_marker])
-        if not pcd_dofs.shape[0]:
-            raise NotImplementedError("problems without PCD Dirichlet rows "
-                                      "(enclosed flow) are not ported yet")
-        mask_p = np.zeros(n1)
-        mask_p[pcd_dofs] = 1.0
+        self.has_pcd_bcs = pcd_marker is not None
         self.pcd_marker = pcd_marker
-        self.pcd_mask = torch.as_tensor(mask_p, dtype=dt, device=dev)
+        self.pcd_mask = None
+        if self.has_pcd_bcs:
+            pcd_dofs = asm.W.Q.facet_dofs([pcd_marker])
+            if pcd_dofs.shape[0] == 0:
+                raise ValueError(f"pcd_marker {pcd_marker} marks no facet")
+            mask_p = np.zeros(n1)
+            mask_p[pcd_dofs] = 1.0
+            self.pcd_mask = torch.as_tensor(mask_p, dtype=dt, device=dev)
+        self._nullspace = enclosed and not self.has_pcd_bcs
 
         c = asm.const
         self._ap_factory = self._make_spd_solver(
             c.Ap, asm.pat_p1, self.pcd_mask, config.pcd.ap,
-            hierarchy=ap_hierarchy)
+            hierarchy=ap_hierarchy, nullspace=self._nullspace)
         self._mp_factory = self._make_spd_solver(
             c.Mp, asm.pat_p1, None, config.pcd.mp)
         self.ap_hierarchy = ap_hierarchy
@@ -98,11 +110,17 @@ class OseenSolver:
         return lambda x: free * op.mv(free * x) + mask * x
 
     def _make_spd_solver(self, op, pattern, mask, cfg: SubsolveConfig,
-                         hierarchy=None):
+                         hierarchy=None, nullspace: bool = False):
         """Return a factory for the subsolver of an SPD pressure operator
-        (Ap or Mp): setup (spectral bounds) runs here, the closure is built
-        per pipeline."""
+        (Ap or Mp): setup (dense inverse, spectral bounds) runs here, the
+        closure is built per pipeline."""
         dt = self.dtype
+        if cfg.method == "lu":
+            bc = (torch.zeros(op.shape[0], dtype=dt, device=self.asm.device)
+                  if mask is None else mask)
+            solve = subsolve.masked_spd_solver_dense(op, pattern, bc, dt,
+                                                     nullspace=nullspace)
+            return lambda: solve
         if cfg.method == "chebyshev":
             diag = op.diag_from(pattern.diag_pos)
             if mask is not None:
@@ -119,11 +137,12 @@ class OseenSolver:
             if hierarchy is None:
                 raise ValueError("pcd.ap.method 'gmg' needs an ap_hierarchy")
             hmarks = set(getattr(hierarchy, "pcd_markers", ()))
-            if hmarks != {self.pcd_marker}:
+            want = {self.pcd_marker} if self.has_pcd_bcs else set()
+            if hmarks != want:
                 raise ValueError(
                     f"pressure GMG pcd-marker mismatch: hierarchy built with "
                     f"pcd_markers={sorted(hmarks)} but the solver's PCD "
-                    f"Dirichlet rows are [{self.pcd_marker}]")
+                    f"Dirichlet rows are {sorted(want)}")
             from .gmg import make_gmg_solver
             solve = make_gmg_solver(hierarchy, cfg, dt)
             return lambda: solve
@@ -133,26 +152,37 @@ class OseenSolver:
     def pcd_apply(self):
         """The PCD apply ``pcd(kp, r_p)`` with fresh subsolve closures."""
         return make_pcd_apply(self.config.pcd.variant, self._ap_factory(),
-                              self._mp_factory(), self.pcd_mask)
+                              self._mp_factory(), self.pcd_mask,
+                              nullspace=self._nullspace)
 
     # -------------------------------------------------------------- #
     def _operator_values_raw(self, wind: torch.Tensor, hi: bool = True):
-        """Picard operator values A1(wind) in the wind's precision class:
-        the high-precision operator runs its convection integrals in f32
-        when ``krylov.hi_ops_f32`` (as the JAX package does)."""
+        """Operator values ``(A1, R)`` in the wind's precision class: A1 the
+        Picard operator, R the (d, d, ...) Newton reaction blocks or None
+        for Picard.  The high-precision operator runs its per-step integrals
+        in f32 when ``krylov.hi_ops_f32`` (as the JAX package does)."""
         c32 = bool(hi) and self.config.krylov.hi_ops_f32
-        return self.asm.picard_matrix_values(wind, hi=hi, compute32=c32)
+        A1 = self.asm.picard_matrix_values(wind, hi=hi, compute32=c32)
+        R = None
+        if self.linearization == "newton":
+            R = self.asm.newton_reaction_values(wind, hi=hi, compute32=c32)
+        return A1, R
 
-    def _operator_values(self, wind: torch.Tensor) -> torch.Tensor:
-        return self._operator_values_raw(wind, hi=False).to(self.dtype)
+    def _operator_values(self, wind: torch.Tensor):
+        A1, R = self._operator_values_raw(wind, hi=False)
+        return A1.to(self.dtype), None if R is None else R.to(self.dtype)
 
-    def _matvec_factory(self, A1vals: torch.Tensor, hi: bool = False):
+    def _matvec_factory(self, A1vals: torch.Tensor,
+                        R: Optional[torch.Tensor] = None, hi: bool = False):
         """Bc-masked monolithic matvec.  ``hi`` uses the high-precision
         operators (f64 BSR under ``hi_block``: the K1 kernel on CUDA)."""
         asm = self.asm
         n2, n_u, d = asm.n2, self.n_u, self.d
         c = asm.const_hi if hi else asm.const
-        A1 = (asm.pat_p2_hi if hi else asm.pat_p2).matrix(A1vals)
+        pat = asm.pat_p2_hi if hi else asm.pat_p2
+        A1 = pat.matrix(A1vals)
+        Rm = (None if R is None else
+              [[pat.matrix(R[a, b]) for b in range(d)] for a in range(d)])
         free_u = self.free_u.to(A1vals.dtype)
         bc_u = self.bc_mask_u.to(A1vals.dtype)
 
@@ -161,27 +191,46 @@ class OseenSolver:
             p = x[n_u:]
             comps = [xu[a * n2:(a + 1) * n2] for a in range(d)]
             ys = [A1.mv(comps[a]) + c.DT[a].mv(p) for a in range(d)]
+            if Rm is not None:
+                for a in range(d):
+                    for b in range(d):
+                        ys[a] = ys[a] + Rm[a][b].mv(comps[b])
             yu = free_u * torch.cat(ys) + bc_u * x[:n_u]
             yp = sum(c.D[a].mv(comps[a]) for a in range(d))
             return torch.cat([yu, yp])
         return matvec
 
-    def _velocity_solver(self, A1vals: torch.Tensor, wind: torch.Tensor):
-        """Velocity-block subsolve (multigrid) at the current wind."""
-        from .gmg import make_velocity_gmg_from_wind
-        return make_velocity_gmg_from_wind(
-            self.velocity_hierarchy, self.config.velocity,
-            wind.to(self.dtype), self.bc_mask_u, self.dtype,
-            fine_values=A1vals)
+    def _velocity_solver(self, A1vals: torch.Tensor, wind: torch.Tensor,
+                         R: Optional[torch.Tensor] = None):
+        """Velocity-block subsolve at the current wind: multigrid, or the
+        dense inverse of the bc-masked block (``velocity.method`` "lu")."""
+        cfg = self.config.velocity
+        if cfg.method == "lu":
+            from .gmg import dense_velocity_block
+            A = dense_velocity_block(self.asm.pat_p2, A1vals, R, self.d)
+            free = self.free_u
+            A = free[:, None] * A * free[None, :] + torch.diag(self.bc_mask_u)
+            return subsolve.dense_lu_solver(A)
+        if cfg.method == "gmg":
+            from .gmg import make_velocity_gmg_from_wind
+            return make_velocity_gmg_from_wind(
+                self.velocity_hierarchy, cfg, wind.to(self.dtype),
+                self.bc_mask_u, self.dtype,
+                newton=self.linearization == "newton",
+                fine_values=(A1vals, R))
+        raise NotImplementedError(
+            f"velocity method {cfg.method!r} is not ported")
 
-    def _pipeline(self, wind: torch.Tensor):
-        """The preconditioner at ``wind`` in the compute dtype."""
+    def _pipeline(self, wind: torch.Tensor, values=None):
+        """The preconditioner at ``wind`` in the compute dtype.  ``values``
+        are the compute-dtype ``(A1, R)`` at ``wind`` when the caller has
+        them already."""
         cfg = self.config
         c = self.asm.const
-        A1vals = self._operator_values(wind)
+        A1vals, R = self._operator_values(wind) if values is None else values
         kp = self.asm.pat_p1.matrix(self.asm.kp_values(
             wind, surface=(cfg.pcd.variant == "BRM2")).to(self.dtype))
-        a_solve = self._velocity_solver(A1vals, wind)
+        a_solve = self._velocity_solver(A1vals, wind, R=R)
         pcd = self.pcd_apply()
         bt_mv = lambda p: torch.cat([c.DT[a].mv(p) for a in range(self.d)])
         return make_fieldsplit_upper(self.n_u, a_solve,
@@ -189,6 +238,20 @@ class OseenSolver:
                                      self.free_u)
 
     # -------------------------------------------------------------- #
+    def solve(self, wind: torch.Tensor, b: torch.Tensor):
+        """Solve the Oseen system linearized at ``wind`` with right-hand
+        side ``b``: FGMRES in the compute dtype to ``krylov.rtol * |b|``, at
+        most ``krylov.maxiter`` iterations.  Returns the
+        :class:`FGMRESResult` and the system matvec it solved with."""
+        kcfg = self.config.krylov
+        wind, b = wind.to(self.dtype), b.to(self.dtype)
+        values = self._operator_values(wind)
+        matvec = self._matvec_factory(*values)
+        pc = self._pipeline(wind, values)
+        res = fgmres(matvec, pc, b, maxiter=kcfg.maxiter, rtol=kcfg.rtol,
+                     reorth_eta=kcfg.reorth_eta)
+        return res, matvec
+
     def make_ir_solve(self, rtol: float = 1e-8):
         """Return ``ir(wind, b) -> (x, iters, true_resnorm, result)``: one
         f64 FGMRES solve to ``rtol`` with the high-precision system matvec
@@ -198,8 +261,8 @@ class OseenSolver:
         kcfg = self.config.krylov
 
         def ir(wind: torch.Tensor, b: torch.Tensor):
-            A1h = self._operator_values_raw(wind.to(dt_hi), hi=True)
-            matvec_hi = self._matvec_factory(A1h, hi=True)
+            A1h, Rh = self._operator_values_raw(wind.to(dt_hi), hi=True)
+            matvec_hi = self._matvec_factory(A1h, Rh, hi=True)
             pc = self._pipeline(wind.to(self.dtype))
             pc_hi = lambda r: pc(r.to(self.dtype)).to(dt_hi)
             b64 = b.to(dt_hi)

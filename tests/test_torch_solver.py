@@ -7,6 +7,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# test workers share the machine's cores: one PyTorch thread each
+torch.set_num_threads(1)
 
 from fenapack_tpu_torch import bench
 from fenapack_tpu_torch.solvers.krylov import fgmres
@@ -170,8 +172,9 @@ def test_velocity_vcycle_matches_jax(l1_f64):
     import jax.numpy as jnp
     nt, nj, wind, rng = l1_f64
     r = rng.standard_normal(nj.n_u) * np.asarray(nj.oseen.free_u)
-    A1t = nt.oseen._operator_values(torch.as_tensor(wind))
+    A1t, Rt = nt.oseen._operator_values(torch.as_tensor(wind))
     A1j, _ = nj.oseen._operator_values(jnp.asarray(wind))
+    assert Rt is None                       # Picard: no reaction blocks
     assert _rel(A1t.numpy(), A1j) <= 1e-12
     zt = nt.oseen._velocity_solver(A1t, torch.as_tensor(wind))(
         torch.as_tensor(r))
@@ -193,8 +196,9 @@ def test_high_precision_matvec_matches_jax(l1_f64):
     import jax.numpy as jnp
     nt, nj, wind, rng = l1_f64
     x = rng.standard_normal(nj.n)
-    A1t = nt.oseen._operator_values_raw(torch.as_tensor(wind), hi=True)
+    A1t, Rt = nt.oseen._operator_values_raw(torch.as_tensor(wind), hi=True)
     A1j, Rj = nj.oseen._operator_values_raw(jnp.asarray(wind), hi=True)
+    assert Rt is None and Rj is None
     assert _rel(A1t.numpy(), A1j) <= 1e-6        # f32 convection integrals
     yt = nt.oseen._matvec_factory(torch.as_tensor(np.array(A1j)),
                                   hi=True)(torch.as_tensor(x))
@@ -352,7 +356,7 @@ def test_config_carries_only_what_the_port_reads():
         ("float32", "BRM2", "gmg")
     assert (cfg.krylov.maxiter, cfg.velocity.smooth_iters,
             cfg.velocity.cycles) == (bench.MAXITER, 3, 2)
-    for key in ("krylov.recycle", "krylov.hi_krylov", "velocity.method",
+    for key in ("krylov.recycle", "krylov.hi_krylov", "velocity.iters",
                 "pcd.ap.smoother", "system_supg"):
         with pytest.raises((TypeError, AttributeError)):
             overrides(SolverConfig(), {key: 1})
