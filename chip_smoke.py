@@ -8,7 +8,8 @@ more lines:
 
   1. device  - require CUDA; print ``nvidia-smi`` name and power limit.
   2. build   - compile every kernel library from csrc/ (one nvcc per source,
-               started together).
+               started together); print each kernel's registers and spills
+               (``-Xptxas -v``).
   3. kernels - every BSR operator of the step path (2D backward-facing
                step, level 2, 25,987 dofs) through the kernel (float64: K1,
                float32: K2) against the plain PyTorch version on the same
@@ -29,14 +30,19 @@ more lines:
                first Newton state of the Re-100 stage, through the K3 kernel
                against the plain version in f64 and f32, 1 and 2 RHS; per
                operator the kernel, plain and cuSPARSE CSR times and the HBM
-               bound.
+               bound.  Then the block product (A1 on both components plus
+               the four R_ab in one pass) against its plain version on every
+               velocity level in f64 and f32, with R, with R and a y0 term,
+               and without R; for level 4 its times beside the bound of the
+               whole product and six cuSPARSE CSR products.
   7. cavity  - the lid-driven cavity through the model entry point
                ``LidDrivenCavity(level=4).solver("BRM2", linearization=
                "newton", gmg_subsolves=True)``: 148,739 dofs, ELL in f64,
                Reynolds continuation 100 -> 200 -> 400 -> 500; asserts every
                stage converged, every linear solve under the Krylov cap at
-               true relative residual <= 1e-8, K3 f64 launches > 0 and no
-               BSR launch, |u| <= 1 and mass conservation.
+               true relative residual <= 1e-8, K3 f64 launches > 0 of the
+               single and of the block product and no BSR launch, |u| <= 1
+               and mass conservation.
   8. cavity-reference - the same schedule at level 1 on the card and on the
                CPU: per-step counts within 1, states within 1e-5.
 
@@ -50,6 +56,7 @@ fits in the 50 MB L2 stays there), and for the headline operators also on
 the device alone with the L2 flushed before each call.
 """
 import json
+import re
 import subprocess
 import time
 
@@ -65,6 +72,8 @@ HEADLINE = {"f64": "A1 fine (f64)", "f32": "A1 velocity level 2"}
 ELL_SOURCE = "fenapack_tpu_torch/csrc/ell_spmv.cu"
 ELL_REPLACES = "fenapack_tpu/ops/pallas_spmv.py:60"
 ELL_HEADLINE = "A1 velocity level 4"
+PTXAS = re.compile(r"Compiling entry function '(\w+)'|(\d+) bytes spill "
+                   r"stores, (\d+) bytes spill loads|Used (\d+) registers")
 
 
 def _require(ok: bool, what: str):
@@ -149,6 +158,17 @@ def main():
     for name, sec in secs.items():
         print(f"[build] {kernels.library_path(name)} done after {sec:.3f} s",
               flush=True)
+        entry, spills = "", (0, 0)
+        for m in PTXAS.finditer(kernels.build_log.get(name, "")):
+            if m.group(1):
+                entry = m.group(1)
+            elif m.group(2):
+                spills = (int(m.group(2)), int(m.group(3)))
+            else:
+                kern = re.search(r"\d+((?:ell|bsr)\w*?_kernel\w+?)EvPK", entry)
+                print(f"[build] ptxas {kern.group(1) if kern else entry}: "
+                      f"{m.group(4)} registers, spill stores/loads "
+                      f"{spills[0]}/{spills[1]} B", flush=True)
     done("build", t0)
 
     # ---- 3. BSR kernels against the plain version at the l2 shapes ------ #
@@ -298,6 +318,56 @@ def main():
                       f"err {rel} (tol {tol}); {json.dumps(t)}; cuSPARSE "
                       f"CSR {why or 'taken'}; {nbytes} B ({by})",
                       flush=True)
+    # the block product: A1 on both components plus the four R_ab, one pass
+    levels = cavity.velocity_levels(nl)
+    brec = {k: {"max_abs_err": 0.0} for k in ("f64", "f32")}
+    top = len(levels) - 1
+    for l, (pat, A1v, Rv) in enumerate(levels):
+        for dt in (torch.float64, torch.float32):
+            kind = ell_spmv._NAMES[dt]
+            tol = F64_TOL if kind == "f64" else F32_TOL
+            A1, R = A1v.to(dt).contiguous(), Rv.to(dt).contiguous()
+            x = torch.as_tensor(rng.standard_normal((2, pat.n_cols)),
+                                dtype=dt, device=dev)
+            y0 = torch.as_tensor(rng.standard_normal((2, pat.n_rows)),
+                                 dtype=dt, device=dev)
+            rels = []
+            for RR, yy in ((R, None), (R, y0), (None, None)):
+                y = ell_spmv.ell_block_spmv(pat.cols, A1, RR, x, pat.n_cols,
+                                            yy)
+                yp = ell_spmv.ell_block_spmv_plain(pat.cols, A1, RR, x,
+                                                   pat.n_cols, yy)
+                torch.cuda.synchronize()
+                abs_err = float((y - yp).abs().max())
+                rels.append(abs_err / max(float(yp.abs().max()), 1e-300))
+                brec[kind]["max_abs_err"] = max(brec[kind]["max_abs_err"],
+                                                abs_err)
+            line = (f"[ell-kernels] block product velocity level {l} {kind} "
+                    f"ELL {tuple(A1.shape)}: max rel err with R {rels[0]}, "
+                    f"with R and y0 {rels[1]}, without R {rels[2]} (tol "
+                    f"{tol})")
+            if l == top:
+                kernel = lambda: ell_spmv.ell_block_spmv(pat.cols, A1, R, x,
+                                                         pat.n_cols)
+                plain = lambda: ell_spmv.ell_block_spmv_plain(
+                    pat.cols, A1, R, x, pat.n_cols)
+                # yardstick: the six cuSPARSE CSR products it replaces
+                # (A1 on either component, the four R_ab), without the sums
+                six = [measure.library(measure.csr_library(pat, v), x[b])
+                       for v, b in ((A1, 0), (A1, 1), (R[0, 0], 0),
+                                    (R[0, 1], 1), (R[1, 0], 0), (R[1, 1], 1))]
+                calls = [c for c, _ in six]
+                lib = ((lambda: [c() for c in calls]) if all(calls)
+                       else None, "; ".join(w for _, w in six if w))
+                nbytes = measure.ell_block_bytes(A1, R, 2, pat.n_cols)
+                t, why = yardsticks(kernel, plain, lib, nbytes,
+                                    measure.ell_block_flops(A1, R, 2), dt)
+                brec[kind].update(t)
+                line += (f"; {json.dumps(t)}; six cuSPARSE CSR products "
+                         f"{why or 'taken'}; {nbytes} B")
+            print(line, flush=True)
+            _require(max(rels) <= tol, f"block product level {l} {kind}: "
+                     f"kernel disagrees with plain ({rels} > {tol})")
     done("ell-kernels", t0)
 
     # ---- 7. the cavity slice at level 4 on the card --------------------- #
@@ -309,17 +379,20 @@ def main():
         ts = time.perf_counter()
         if Re != cavity.RE[0]:
             nl = cavity.build(cavity.LEVEL, Re, device=dev, hier=hier)
-        before = dict(ell_spmv.launches)
+        before = (ell_spmv.launches["f64"], ell_spmv.block_launches["f64"])
         r = nl.solve(w, rtol=cavity.RTOL, max_steps=cavity.MAX_STEPS)
         torch.cuda.synchronize()
         w = r.w
-        k3 = ell_spmv.launches["f64"] - before["f64"]
+        k3 = (ell_spmv.launches["f64"] - before[0],
+              ell_spmv.block_launches["f64"] - before[1])
         stages.append(r)
         print(f"[cavity] Re {Re:g}: steps {len(r.linear_iters)} iters "
               f"{r.linear_iters} (cap {cavity.CFG['krylov.maxiter']}); "
               f"nonlinear res {r.nonlinear_res}; max linear true rel res "
               f"{max(r.lin_rel)}; solve {r.wall_time:.3f} s, stage "
-              f"{time.perf_counter() - ts:.3f} s; K3 f64 launches {k3}",
+              f"{time.perf_counter() - ts:.3f} s; K3 f64 launches: single "
+              f"product {k3[0]}, block product {k3[1]} "
+              f"({sum(k3) / r.total_linear_iters:.1f} per FGMRES iteration)",
               flush=True)
         _require(r.converged, f"Re {Re}: the Newton solve did not converge "
                  f"({r.nonlinear_res})")
@@ -330,6 +403,8 @@ def main():
                  f"Re {Re}: linear true relative residuals {r.lin_rel}")
     cavity_launches = {"ell_f64": ell_spmv.launches["f64"],
                        "ell_f32": ell_spmv.launches["f32"],
+                       "ell_block_f64": ell_spmv.block_launches["f64"],
+                       "ell_block_f32": ell_spmv.block_launches["f32"],
                        "bsr": dict(bsr_spmv.launches)}
     n2 = nl.asm.n2
     umax = float(w[:2 * n2].abs().max())
@@ -340,6 +415,7 @@ def main():
           f"iterations {total}; max |u| {umax}; max |D u| {div}; launches "
           f"{cavity_launches}", flush=True)
     _require(cavity_launches["ell_f64"] > 0
+             and cavity_launches["ell_block_f64"] > 0
              and sum(cavity_launches["bsr"].values()) == 0,
              f"cavity launches {cavity_launches}")
     _require(w.shape == (nl.n,) and bool(torch.isfinite(w).all()),
@@ -374,7 +450,7 @@ def main():
     done("cavity-reference", t0)
 
     # ``launches``: counts of the path's own run ("path").  The cavity path
-    # is f64 throughout: the ELL record is its f64 instantiation, and the
+    # is f64 throughout: each ELL record is its f64 instantiation, and the
     # f32 one, checked in phase 6 but launched by no path, is nested in it
     kernels_line = [{"name": f"bsr_spmv_{k}", "route": "cuda",
                      "source": SOURCE, "replaces": REPLACES[k],
@@ -386,6 +462,13 @@ def main():
         "path": f"cavity l{cavity.LEVEL} continuation", "dtype": "f64",
         **erec["f64"], "f32": {"launches": cavity_launches["ell_f32"],
                                **erec["f32"]}})
+    kernels_line.append({
+        "name": "ell_block_spmv", "route": "cuda", "source": ELL_SOURCE,
+        "replaces": ELL_REPLACES,
+        "launches": cavity_launches["ell_block_f64"],
+        "path": f"cavity l{cavity.LEVEL} continuation", "dtype": "f64",
+        **brec["f64"], "f32": {"launches": cavity_launches["ell_block_f32"],
+                               **brec["f32"]}})
     print(f"[time] total {time.perf_counter() - t_start:.3f} s; phases "
           f"{json.dumps(phase_s)}", flush=True)
     print(json.dumps({"kernels": kernels_line}), flush=True)

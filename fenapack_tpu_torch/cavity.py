@@ -31,6 +31,19 @@ def build(level: int, Re: float, *, device, hier=None):
                     asm=asm, hier=hier, **CFG)
 
 
+def velocity_levels(nl):
+    """``(pattern, A1, R)`` of every velocity multigrid level, coarse to
+    fine, with the values of the slice's first Newton state: the Picard
+    operator and the (2, 2, n, K) Newton reaction blocks."""
+    o = nl.oseen
+    wind = nl.initial_state()[:nl.n_u]
+    vh = o.velocity_hierarchy
+    levels = gmg.velocity_gmg_values(
+        vh, wind, o.bc_mask_u, o.dtype, newton=True,
+        fine_values=o._operator_values(wind))["levels"]
+    return [(lasm.pat_p2, A1, R) for lasm, (A1, R) in zip(vh.asms, levels)]
+
+
 def ell_operators(nl):
     """``(name, pattern, values)`` of every ELL operator the slice applies,
     with the values of its first Newton state: A1 and the four Newton
@@ -38,14 +51,11 @@ def ell_operators(nl):
     level, Mp and Kp."""
     o, asm = nl.oseen, nl.asm
     wind = nl.initial_state()[:nl.n_u]
-    vh, ph = o.velocity_hierarchy, o.ap_hierarchy
-    levels = gmg.velocity_gmg_values(
-        vh, wind, o.bc_mask_u, o.dtype, newton=True,
-        fine_values=o._operator_values(wind))["levels"]
+    ph = o.ap_hierarchy
     ops = []
-    for l, (lasm, (A1, R)) in enumerate(zip(vh.asms, levels)):
-        ops.append((f"A1 velocity level {l}", lasm.pat_p2, A1))
-        ops += [(f"R{a}{b} velocity level {l}", lasm.pat_p2, R[a, b])
+    for l, (pat, A1, R) in enumerate(velocity_levels(nl)):
+        ops.append((f"A1 velocity level {l}", pat, A1))
+        ops += [(f"R{a}{b} velocity level {l}", pat, R[a, b])
                 for a in range(2) for b in range(2)]
     ops += [(f"D{a}", asm.pat_div, asm.const.D[a].vals) for a in range(2)]
     ops += [(f"Bt{a}", asm.pat_divT, asm.const.DT[a].vals)

@@ -94,6 +94,24 @@ def ell_bytes(vals: torch.Tensor, n_cols: int, nrhs: int = 1) -> int:
     return vals.numel() * (isz + 4) + (n_cols + vals.shape[0]) * nrhs * isz
 
 
+def ell_block_bytes(A1: torch.Tensor, R, d: int, n_cols: int,
+                    y0: bool = False) -> int:
+    """Bytes the ELL block product must move: the int32 columns once, A1
+    and (when given) the d*d planes of R once each, the d components of x,
+    y and (when given) y0."""
+    isz = A1.element_size()
+    planes = 1 + (0 if R is None else d * d)
+    return (A1.numel() * (4 + planes * isz)
+            + d * (n_cols + (2 if y0 else 1) * A1.shape[0]) * isz)
+
+
+def ell_block_flops(A1: torch.Tensor, R, d: int) -> int:
+    """Operations of the ELL block product: every slot of A1 serves d
+    components, every slot of R one (padding slots included, as in the
+    bytes)."""
+    return 2 * A1.numel() * (d + (0 if R is None else d * d))
+
+
 def bsr_bytes(nbr: torch.Tensor, tiles: torch.Tensor, n_rows: int,
               n_cols: int, nrhs: int = 1) -> int:
     """Bytes a BSR product must move: tiles, the int32 neighbour table, x,

@@ -24,12 +24,15 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _ROOT = os.path.dirname(_PKG)
 _BUILD = os.path.join(_ROOT, "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = {os.path.splitext(os.path.basename(p))[0]: p
            for p in sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cu")))}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# what nvcc printed for each library this process built (``-Xptxas -v``:
+# registers, shared memory and spills of every kernel)
+build_log: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -78,6 +81,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
             proc.kill()
             _, err = proc.communicate()
         secs[n] = time.perf_counter() - t0
+        build_log[n] = err
         if proc.returncode != 0:
             if os.path.exists(tmp):
                 os.unlink(tmp)

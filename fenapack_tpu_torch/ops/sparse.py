@@ -7,7 +7,10 @@ element values (``index_add_``).  Two layouts share one interface
 
   * :class:`SparsityPattern` / :class:`ELL`: per-row padded column lists
     (int32, the JAX package's layout).  Its product is the ELL SpMV kernel
-    of :mod:`fenapack_tpu_torch.ops.ell_spmv` (K3).
+    of :mod:`fenapack_tpu_torch.ops.ell_spmv` (K3).  :class:`ELLBlock`
+    (``pattern.block_matrix(A1vals, Rvals)``) is the velocity block of d
+    components whose operators share the pattern, applied in one pass by
+    the same module's block product.
   * :class:`BlockSparsityPattern` / :class:`BlockELL`: block-sparse rows
     (BSR) of dense ``b x b`` tiles stored flat,
     ``tiles[I, i, j*b + c] = A[I*b + i, nbr[I, j]*b + c]``.  Its product is
@@ -31,7 +34,7 @@ import numpy as np
 import torch
 
 from .bsr_spmv import bsr_spmv
-from .ell_spmv import ell_spmv
+from .ell_spmv import ell_block_spmv, ell_spmv
 
 
 class ELL:
@@ -54,6 +57,22 @@ class ELL:
 
     def diag_from(self, diag_pos: torch.Tensor) -> torch.Tensor:
         return self.vals.reshape(-1)[diag_pos]
+
+
+class ELLBlock:
+    """The velocity block over one ELL pattern: ``A1`` (n_rows, K) on every
+    component's diagonal plus, when given, the reaction blocks ``R``
+    (d, d, n_rows, K), all over the column array ``cols``."""
+
+    def __init__(self, cols: torch.Tensor, A1: torch.Tensor,
+                 R: Optional[torch.Tensor], n_cols: int):
+        self.cols, self.A1, self.R, self.n_cols = cols, A1, R, n_cols
+
+    def mv(self, x: torch.Tensor,
+           y0: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``y[a] = A1 x[a] + y0[a] + sum_b R[a, b] x[b]`` for x of shape
+        (d, n_cols): (d, n_rows), the components in the order of x."""
+        return ell_block_spmv(self.cols, self.A1, self.R, x, self.n_cols, y0)
 
 
 class BlockELL:
@@ -146,6 +165,12 @@ class SparsityPattern:
 
     def matrix(self, vals: torch.Tensor):
         return ELL(self.cols, vals, self.n_cols)
+
+    def block_matrix(self, A1vals: torch.Tensor,
+                     Rvals: Optional[torch.Tensor] = None):
+        """The velocity block ``A1`` per component plus the reaction blocks
+        ``Rvals`` (d, d, n_rows, K) or None, all over this pattern."""
+        return ELLBlock(self.cols, A1vals, Rvals, self.n_cols)
 
     def assemble_values(self, element_values: torch.Tensor) -> torch.Tensor:
         """Scatter-add flat element-tensor values into a value array.  On
@@ -268,6 +293,10 @@ class BlockSparsityPattern(SparsityPattern):
 
     def matrix(self, vals: torch.Tensor):
         return BlockELL(self.nbr, vals, self.n_rows, self.n_cols)
+
+    def block_matrix(self, A1vals, Rvals=None):
+        raise NotImplementedError(
+            "the one-pass velocity block exists for the ELL layout only")
 
     def _layout_cache(self) -> dict:
         return dict(nbr=self._nbr_np, shape_meta=np.asarray(

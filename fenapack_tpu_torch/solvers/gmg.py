@@ -33,7 +33,7 @@ from ..fem import mesh as meshmod
 from ..fem.elements import p2_basis
 from ..fem.mesh import TriMesh
 from ..ops import subsolve
-from ..ops.sparse import BlockSparsityPattern
+from ..ops.sparse import ELL, BlockSparsityPattern
 from .config import MultigridConfig
 
 # Largest coarse system inverted densely (the JAX package's default
@@ -430,9 +430,11 @@ def make_velocity_gmg_from_values(vh: VelocityHierarchy,
                                   bc_mask_u_fine: torch.Tensor,
                                   omega: float = 0.6) -> Callable:
     """Closure half of the velocity V-cycle, from
-    :func:`velocity_gmg_values` output.  Each component is one single-RHS
-    product with the level's scalar operator, plus one per Newton reaction
-    block."""
+    :func:`velocity_gmg_values` output.  In the ELL layout a level matvec is
+    one block product over the level's shared pattern (A1 on every
+    component plus the Newton reaction blocks); in the BSR layout each
+    component is one single-RHS product with the level's scalar operator,
+    plus one per Newton reaction block."""
     d = vh.asms[-1].dim
     level_masks = _velocity_level_masks(vh, bc_mask_u_fine, d)
     matvecs, dinvs, vtransfers = [], [], []
@@ -445,15 +447,21 @@ def make_velocity_gmg_from_values(vh: VelocityHierarchy,
              [[asm.pat_p2.matrix(Rv[a, b]) for b in range(d)]
               for a in range(d)])
 
-        def mv(x, A1=A1, R=R, n2=n2, free=free, mask=mask_u):
-            xf = free * x
-            comps = [xf[a * n2:(a + 1) * n2] for a in range(d)]
-            ys = [A1.mv(comps[a]) for a in range(d)]
-            if R is not None:
-                for a in range(d):
-                    for b in range(d):
-                        ys[a] = ys[a] + R[a][b].mv(comps[b])
-            return free * torch.cat(ys) + mask * x
+        if isinstance(A1, ELL):
+            def block(xf, blk=asm.pat_p2.block_matrix(A1v, Rv), n2=n2):
+                return blk.mv(xf.view(d, n2)).view(-1)
+        else:
+            def block(xf, A1=A1, R=R, n2=n2):
+                comps = [xf[a * n2:(a + 1) * n2] for a in range(d)]
+                ys = [A1.mv(comps[a]) for a in range(d)]
+                if R is not None:
+                    for a in range(d):
+                        for b in range(d):
+                            ys[a] = ys[a] + R[a][b].mv(comps[b])
+                return torch.cat(ys)
+
+        def mv(x, block=block, free=free, mask=mask_u):
+            return free * block(free * x) + mask * x
 
         diag1 = A1.diag_from(asm.pat_p2.diag_pos)
         diag = torch.cat([diag1 if R is None else

@@ -21,6 +21,7 @@ import torch
 
 from ..fem.dofmap import DirichletBC, merge_bcs
 from ..ops import subsolve
+from ..ops.sparse import ELL
 from .config import SolverConfig, SubsolveConfig
 from .fieldsplit import make_fieldsplit_upper
 from .krylov import fgmres
@@ -181,21 +182,36 @@ class OseenSolver:
         c = asm.const_hi if hi else asm.const
         pat = asm.pat_p2_hi if hi else asm.pat_p2
         A1 = pat.matrix(A1vals)
-        Rm = (None if R is None else
-              [[pat.matrix(R[a, b]) for b in range(d)] for a in range(d)])
         free_u = self.free_u.to(A1vals.dtype)
         bc_u = self.bc_mask_u.to(A1vals.dtype)
+
+        if isinstance(A1, ELL):
+            # ELL: A1 and the reaction blocks share one pattern, and the
+            # velocity block is one pass over it (the pressure gradient is
+            # added between A1's product and the reaction products, as
+            # the composed form below adds it)
+            blk = pat.block_matrix(A1vals, R)
+
+            def velocity(xu, comps, p):
+                grad_p = torch.stack([c.DT[a].mv(p) for a in range(d)])
+                return blk.mv(xu.view(d, n2), grad_p).view(-1)
+        else:
+            Rm = (None if R is None else
+                  [[pat.matrix(R[a, b]) for b in range(d)] for a in range(d)])
+
+            def velocity(xu, comps, p):
+                ys = [A1.mv(comps[a]) + c.DT[a].mv(p) for a in range(d)]
+                if Rm is not None:
+                    for a in range(d):
+                        for b in range(d):
+                            ys[a] = ys[a] + Rm[a][b].mv(comps[b])
+                return torch.cat(ys)
 
         def matvec(x):
             xu = free_u * x[:n_u]
             p = x[n_u:]
             comps = [xu[a * n2:(a + 1) * n2] for a in range(d)]
-            ys = [A1.mv(comps[a]) + c.DT[a].mv(p) for a in range(d)]
-            if Rm is not None:
-                for a in range(d):
-                    for b in range(d):
-                        ys[a] = ys[a] + Rm[a][b].mv(comps[b])
-            yu = free_u * torch.cat(ys) + bc_u * x[:n_u]
+            yu = free_u * velocity(xu, comps, p) + bc_u * x[:n_u]
             yp = sum(c.D[a].mv(comps[a]) for a in range(d))
             return torch.cat([yu, yp])
         return matvec

@@ -12,12 +12,14 @@ unprofiled (wall time, peak device memory) and once under
 the wall time with and without the profiler, the device busy time (the sum
 of the device events, one stream), the busy and idle shares, the device
 events per FGMRES iteration, the device time of the heaviest kernels by
-name, and per SpMV kernel (``ell_f64``, ``ell_f32``, ``bsr_f64``,
-``bsr_f32``) the launches in the profiled solve, their device time, their
-bound (the bytes each launch must move over the HBM rate, or its
-operations over the peak rate if that is longer, summed over the launches)
-and the device time above that bound.  It needs a CUDA device: every time
-is a device measurement.
+name, and per SpMV kernel (``ell_f64``, ``ell_block_f64``, ``bsr_f32``,
+...) the launches in the profiled solve, their device time, their bound
+(the bytes each launch must move over the HBM rate, or its operations over
+the peak rate if that is longer, summed over the launches) and the device
+time above that bound, also split by the operator's row count
+(``by_rows``: the i-th launch the operators made is paired with the i-th
+device event of that kernel; one stream keeps the order).  It needs a CUDA
+device: every time is a device measurement.
 """
 from __future__ import annotations
 
@@ -35,37 +37,78 @@ from .ops import sparse
 
 # the kernels' device events, e.g.
 # "void (anonymous namespace)::ell_spmv_kernel<double, 1>(int const*, ...)"
-_SPMV_EVENT = re.compile(r"\b(ell|bsr)_spmv_kernel<(double|float)\b")
+_SPMV_EVENT = re.compile(
+    r"\b(ell_block|ell|bsr)_spmv_kernel<(double|float)\b")
+
+
+class _Tally(collections.defaultdict):
+    """``{kernel: [launches, bound_s]}``; ``each[kernel]`` lists every
+    launch in order as ``(n_rows, bound_s)``."""
+
+    def __init__(self):
+        super().__init__(lambda: [0, 0.0])
+        self.each = collections.defaultdict(list)
+
+    def add(self, kind, a, n_rows, nbytes, flops):
+        name = f"{kind}_{'f64' if a.dtype == torch.float64 else 'f32'}"
+        bound_s = measure.bound(nbytes, flops, a.dtype)[0] * 1e-3
+        self[name][0] += 1
+        self[name][1] += bound_s
+        self.each[name].append((n_rows, bound_s))
 
 
 @contextlib.contextmanager
 def _bounds():
-    """Yield ``{kernel: [launches, bound_s]}`` summed over every product
-    that ``ops.sparse`` issues inside the block."""
-    tally = collections.defaultdict(lambda: [0, 0.0])
-    ell, bsr = sparse.ell_spmv, sparse.bsr_spmv
-
-    def add(kind, a, k, nbytes):
-        name = f"{kind}_{'f64' if a.dtype == torch.float64 else 'f32'}"
-        tally[name][0] += 1
-        tally[name][1] += measure.bound(nbytes, 2 * a.numel() * k,
-                                        a.dtype)[0] * 1e-3
+    """Yield the :class:`_Tally` of every product that ``ops.sparse``
+    makes inside the block."""
+    tally = _Tally()
+    ell, blk, bsr = (sparse.ell_spmv, sparse.ell_block_spmv,
+                     sparse.bsr_spmv)
 
     def ell_tallied(cols, vals, x, n_cols):
         k = 1 if x.dim() == 1 else x.shape[1]
-        add("ell", vals, k, measure.ell_bytes(vals, n_cols, k))
+        tally.add("ell", vals, vals.shape[0],
+                  measure.ell_bytes(vals, n_cols, k), 2 * vals.numel() * k)
         return ell(cols, vals, x, n_cols)
+
+    def blk_tallied(cols, A1, R, x, n_cols, y0=None):
+        d = x.shape[0]
+        tally.add("ell_block", A1, A1.shape[0],
+                  measure.ell_block_bytes(A1, R, d, n_cols, y0 is not None),
+                  measure.ell_block_flops(A1, R, d))
+        return blk(cols, A1, R, x, n_cols, y0)
 
     def bsr_tallied(nbr, tiles, x, n_rows, n_cols):
         k = 1 if x.dim() == 1 else x.shape[1]
-        add("bsr", tiles, k, measure.bsr_bytes(nbr, tiles, n_rows, n_cols, k))
+        tally.add("bsr", tiles, n_rows,
+                  measure.bsr_bytes(nbr, tiles, n_rows, n_cols, k),
+                  2 * tiles.numel() * k)
         return bsr(nbr, tiles, x, n_rows, n_cols)
 
-    sparse.ell_spmv, sparse.bsr_spmv = ell_tallied, bsr_tallied
+    sparse.ell_spmv, sparse.ell_block_spmv, sparse.bsr_spmv = (
+        ell_tallied, blk_tallied, bsr_tallied)
     try:
         yield tally
     finally:
-        sparse.ell_spmv, sparse.bsr_spmv = ell, bsr
+        sparse.ell_spmv, sparse.ell_block_spmv, sparse.bsr_spmv = (
+            ell, blk, bsr)
+
+
+def _by_rows(launched, event_us):
+    """``{n_rows: {launches, device_s, bound_s}}`` from the launches of one
+    kernel, ``(n_rows, bound_s)`` in order, and the microseconds of its
+    device events in order; None when the two lists differ in length (the
+    profiler dropped or added events) and no pairing can be trusted."""
+    if len(launched) != len(event_us):
+        return None
+    split = collections.defaultdict(lambda: [0, 0.0, 0.0])
+    for (n_rows, bound_s), us in zip(launched, event_us):
+        s = split[n_rows]
+        s[0] += 1
+        s[1] += us * 1e-6
+        s[2] += bound_s
+    return {str(n): {"launches": s[0], "device_s": s[1], "bound_s": s[2]}
+            for n, s in sorted(split.items())}
 
 
 def _kernel_of(event_name: str):
@@ -112,10 +155,12 @@ def run(problem: str = "cavity", level: int = None, steps: int = 2) -> dict:
         rp = solve()
         torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t0
-    events = measure.device_events(prof)
+    events = sorted(measure.device_events(prof),
+                    key=lambda e: e.time_range.start)
     busy_us = sum(e.time_range.elapsed_us() for e in events)
     by_name = collections.defaultdict(lambda: [0, 0.0])
     spmv = collections.defaultdict(lambda: [0, 0.0])
+    spmv_us = collections.defaultdict(list)
     for e in events:
         us = e.time_range.elapsed_us()
         by_name[e.name][0] += 1
@@ -124,6 +169,7 @@ def run(problem: str = "cavity", level: int = None, steps: int = 2) -> dict:
         if kind:
             spmv[kind][0] += 1
             spmv[kind][1] += us
+            spmv_us[kind].append(us)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     iters = iters_of(rp)
     kernels = {}
@@ -132,7 +178,9 @@ def run(problem: str = "cavity", level: int = None, steps: int = 2) -> dict:
         dev_s = spmv[kind][1] * 1e-6
         kernels[kind] = {"launches": n, "device_events": spmv[kind][0],
                          "device_s": dev_s, "bound_s": bound_s,
-                         "above_bound_s": dev_s - bound_s}
+                         "above_bound_s": dev_s - bound_s,
+                         "by_rows": _by_rows(bounds.each[kind],
+                                             spmv_us[kind])}
     return {
         "problem": problem, "level": level, "dofs": int(dofs),
         "fgmres_iters": iters, "same_iters": iters_of(r) == iters,
@@ -145,6 +193,8 @@ def run(problem: str = "cavity", level: int = None, steps: int = 2) -> dict:
         "device_events": len(events),
         "device_events_per_iter": len(events) / max(sum(iters), 1),
         "spmv_kernels": kernels,
+        "spmv_launches_per_iter": sum(k["launches"] for k in kernels.values())
+        / max(sum(iters), 1),
         "peak_device_memory_bytes": peak,
         "top_kernels": [{"name": k[:90], "count": v[0],
                          "device_ms": v[1] * 1e-3} for k, v in top],

@@ -1,8 +1,9 @@
-"""ELL SpMV (kernel K3): the plain PyTorch version against the JAX
-package's Pallas ELL kernel run as its own tests run it (``PallasSpMV`` in
-interpret mode) and against its ``ELL.mv`` with two right-hand sides, the
-wrapper's checks, and, on a CUDA GPU only, the hand-written kernel against
-the plain version.
+"""ELL SpMV (kernel K3): the plain PyTorch versions of the single product
+and of the velocity-block product against the JAX package's Pallas ELL
+kernel run as its own tests run it (``PallasSpMV`` in interpret mode) and
+against its ``ELL.mv`` with two right-hand sides, the wrappers' checks,
+and, on a CUDA GPU only, the hand-written kernels against their plain
+versions.
 
 Tolerances (max |y - y_ref| / max |y_ref|): float32 1e-5, float64 1e-12;
 the two sides sum in different orders."""
@@ -19,7 +20,7 @@ from fenapack_tpu_torch import interop
 from fenapack_tpu_torch.fem import mesh as tmesh
 from fenapack_tpu_torch.fem.dofmap import TaylorHood
 from fenapack_tpu_torch.ops import ell_spmv as K
-from fenapack_tpu_torch.ops.sparse import ELL, SparsityPattern, \
+from fenapack_tpu_torch.ops.sparse import ELL, ELLBlock, SparsityPattern, \
     pattern_from_dofmaps
 
 TOL = {np.float32: 1e-5, np.float64: 1e-12}
@@ -227,6 +228,221 @@ def test_kernel_raises_instead_of_falling_back(cuda):
         K.ell_spmv(cols.cpu(), vals, x[:, 0].contiguous(), nc)
 
 
+# ---- the velocity-block product ----------------------------------------- #
+
+def _jax_block(jpat, A1, R, x):
+    """``y[a] = A1 x[a] + sum_b R[a, b] x[b]`` composed, as the JAX package
+    composes it, from single ELL products (the Pallas kernel, interpreted)."""
+    import jax.numpy as jnp
+    d = x.shape[0]
+    mv = lambda v, xa: _jax_pallas(jpat.matrix(jnp.asarray(v)),
+                                   jnp.asarray(xa))
+    ys = [mv(A1, x[a]) for a in range(d)]
+    if R is not None:
+        for a in range(d):
+            for b in range(d):
+                ys[a] = ys[a] + mv(R[a, b], x[b])
+    return np.stack(ys)
+
+
+def _block_patterns(which):
+    """(JAX pattern, port pattern) of the cavity's P2 pattern at level 0 or
+    1, or of the random pattern."""
+    from fenapack_tpu.ops.sparse import SparsityPattern as JPattern, \
+        pattern_from_dofmaps as jpattern
+    if which == "random":
+        _, rows, cols, n = _random_pattern()
+        return (JPattern(rows, cols, n, n),
+                SparsityPattern(rows, cols, n, n, device="cpu"))
+    V = TaylorHood(tmesh.cavity_mesh(which)).V
+    args = (V.cell_dofs, V.cell_dofs, V.dim, V.dim)
+    return jpattern(*args), pattern_from_dofmaps(*args, device="cpu")
+
+
+@pytest.mark.parametrize("with_R", [True, False], ids=["newton", "picard"])
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("np_dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("which", [0, 1, "random"])
+def test_block_plain_matches_jax_composition(which, np_dtype, d, with_R):
+    pytest.importorskip("jax")
+    jpat, pat = _block_patterns(which)
+    np.testing.assert_array_equal(pat.cols.numpy(), np.asarray(jpat.cols))
+    rng = np.random.default_rng(7)
+    n, K = pat.value_shape
+    # values on the pattern's own slots only: padding slots hold zero
+    live = np.zeros(n * K, dtype=bool)
+    live[pat._upos] = True
+    live = live.reshape(n, K)
+    A1 = (rng.standard_normal((n, K)) * live).astype(np_dtype)
+    R = ((rng.standard_normal((d, d, n, K)) * live).astype(np_dtype)
+         if with_R else None)
+    x = rng.standard_normal((d, pat.n_cols)).astype(np_dtype)
+    blk = pat.block_matrix(torch.as_tensor(A1),
+                           None if R is None else torch.as_tensor(R))
+    y = blk.mv(torch.as_tensor(x))
+    assert y.shape == (d, n) and y.dtype == DTYPES[np_dtype]
+    assert _relerr(y.numpy(), _jax_block(jpat, A1, R, x)) <= TOL[np_dtype]
+
+
+def _random_block(dtype, device, d, with_R, n=300, K=7, n_cols=300, seed=5):
+    cols, A1, _ = _random_ell(dtype, "cpu", n=n, K=K, n_cols=n_cols,
+                              seed=seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    R = torch.randn(d, d, n, K, generator=g, dtype=dtype) if with_R else None
+    x = torch.randn(d, n_cols, generator=g, dtype=dtype)
+    y0 = torch.randn(d, n, generator=g, dtype=dtype)
+    to = lambda t: None if t is None else t.to(device)
+    return to(cols), to(A1), to(R), to(x), to(y0)
+
+
+@pytest.mark.parametrize("with_y0", [False, True], ids=["", "y0"])
+@pytest.mark.parametrize("with_R", [True, False], ids=["newton", "picard"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_block_plain_is_the_composition_of_single_products(dtype, with_R,
+                                                           with_y0):
+    """Bit for bit what the velocity matvecs computed from single products:
+    A1's product, then the term between (the outer matvec's pressure
+    gradient), then each reaction product added in turn."""
+    d = 2
+    cols, A1, R, x, y0 = _random_block(dtype, "cpu", d, with_R)
+    if not with_y0:
+        y0 = None
+    n_cols = x.shape[1]
+    ys = [K.ell_spmv_plain(cols, A1, x[a], n_cols) for a in range(d)]
+    if y0 is not None:
+        ys = [ys[a] + y0[a] for a in range(d)]
+    if R is not None:
+        for a in range(d):
+            for b in range(d):
+                ys[a] = ys[a] + K.ell_spmv_plain(cols, R[a, b], x[b], n_cols)
+    y = K.ell_block_spmv(cols, A1, R, x, n_cols, y0)
+    assert torch.equal(y, torch.stack(ys))
+    assert torch.equal(y.reshape(-1), torch.cat(ys))
+
+
+def test_block_wrapper_rejects_bad_arguments():
+    cols, A1, R, x, y0 = _random_block(torch.float64, "cpu", 2, True)
+    nc = x.shape[1]
+    with pytest.raises(ValueError):
+        K.ell_block_spmv(cols, A1, R[:1], x, nc)             # R not (d, d)
+    with pytest.raises(ValueError):
+        K.ell_block_spmv(cols, A1, R[..., :-1], x, nc)       # R vs cols
+    with pytest.raises(ValueError):
+        K.ell_block_spmv(cols, A1, R.transpose(0, 1), x, nc)  # strided R
+    with pytest.raises(ValueError):
+        K.ell_block_spmv(cols, A1, R, x.t().contiguous().t(), nc)
+    with pytest.raises(ValueError):
+        K.ell_block_spmv(cols, A1, None, x.reshape(-1), nc)  # flat x
+    with pytest.raises(ValueError):
+        K.ell_block_spmv(cols, A1, None, x[:, :-1], nc)      # wrong length
+    with pytest.raises(ValueError):
+        K.ell_block_spmv(cols, A1, None, torch.zeros(
+            K.MAX_DIM + 1, nc, dtype=torch.float64), nc)     # d > 3
+    with pytest.raises(ValueError):
+        K.ell_block_spmv(cols, A1, R, x, nc, y0[:, :-1])     # y0 shape
+    with pytest.raises(ValueError):
+        K.ell_block_spmv(cols, A1[:, :-1], None, x, nc)      # cols vs A1
+    with pytest.raises(TypeError):
+        K.ell_block_spmv(cols, A1, R.float(), x, nc)         # mixed dtypes
+    with pytest.raises(TypeError):
+        K.ell_block_spmv(cols.long(), A1, R, x, nc)          # int64 cols
+    with pytest.raises(TypeError):
+        K.ell_block_spmv(cols, A1.half(), None, x.half(), nc)
+    with pytest.raises(ValueError):
+        K.ell_block_spmv(cols, A1, R, x.to("meta"), nc)      # mixed devices
+    with pytest.raises(ValueError):
+        K.ell_block_spmv(*(t.to("meta") for t in (cols, A1, R, x)), nc)
+
+
+def test_block_cpu_tensors_take_the_plain_version_without_counting():
+    cols, A1, R, x, y0 = _random_block(torch.float32, "cpu", 3, True)
+    before = (dict(K.launches), dict(K.block_launches))
+    y = ELLBlock(cols, A1, R, x.shape[1]).mv(x)
+    assert (K.launches, K.block_launches) == before
+    assert torch.equal(y, K.ell_block_spmv_plain(cols, A1, R, x, x.shape[1]))
+    K.block_launches["f32"] += 1
+    K.reset_launches()
+    assert K.block_launches == {"f32": 0, "f64": 0} == K.launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_y0", [False, True], ids=["", "y0"])
+@pytest.mark.parametrize("with_R", [True, False], ids=["newton", "picard"])
+@pytest.mark.parametrize("d", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_block_kernel_matches_plain(cuda, dtype, d, with_R, with_y0):
+    """Odd n*K: the planes of R start off the 16-byte grid, and the last
+    tile is ragged; several tiles per block at the largest size."""
+    name = "f32" if dtype == torch.float32 else "f64"
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    for n, Kw in ((1031, 19), (70001, 19), (517, 8), (5, 3)):
+        cols, A1, R, x, y0 = _random_block(dtype, cuda, d, with_R, n=n,
+                                           K=Kw, n_cols=n)
+        if not with_y0:
+            y0 = None
+        before = dict(K.block_launches)
+        y = K.ell_block_spmv(cols, A1, R, x, n, y0)
+        torch.cuda.synchronize()
+        assert K.block_launches[name] == before[name] + 1
+        ref = K.ell_block_spmv_plain(cols, A1, R, x, n, y0)
+        assert y.shape == ref.shape == (d, n)
+        assert float((y - ref).abs().max() / ref.abs().max()) <= tol
+        # a view that starts off the 16-byte grid
+        if n > 5:
+            y1 = K.ell_block_spmv(cols[1:], A1[1:], None, x, n)
+            ref1 = K.ell_block_spmv_plain(cols[1:], A1[1:], None, x, n)
+            assert float((y1 - ref1).abs().max() / ref1.abs().max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_matches_plain_on_ragged_and_unaligned_tiles(cuda, dtype):
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    for n, Kw in ((70001, 19), (16641, 7), (517, 8), (3, 5), (40, 700)):
+        cols, vals, nc = _random_ell(dtype, cuda, n=n, K=Kw, n_cols=n)
+        x = torch.randn(n, dtype=dtype, device=cuda)
+        for c, v in ((cols, vals), (cols[1:], vals[1:])):
+            y = K.ell_spmv(c, v, x, n)
+            torch.cuda.synchronize()
+            ref = K.ell_spmv_plain(c, v, x, n)
+            assert float((y - ref).abs().max() / ref.abs().max()) <= tol
+
+
+@pytest.mark.gpu
+def test_block_mv_on_cuda_launches_one_kernel(cuda):
+    cols, A1, R, x, _ = _random_block(torch.float64, cuda, 2, True)
+    K.reset_launches()
+    y = ELLBlock(cols, A1, R, x.shape[1]).mv(x)
+    torch.cuda.synchronize()
+    assert K.block_launches == {"f32": 0, "f64": 1}
+    assert K.launches == {"f32": 0, "f64": 0}
+    ref = K.ell_block_spmv_plain(cols, A1, R, x, x.shape[1])
+    assert float((y - ref).abs().max() / ref.abs().max()) <= 1e-12
+
+
+@pytest.mark.gpu
+def test_block_kernel_raises_instead_of_falling_back(cuda):
+    cols, A1, R, x, y0 = _random_block(torch.float32, cuda, 2, True)
+    nc = x.shape[1]
+    with pytest.raises(ValueError):
+        K.ell_block_spmv(cols, A1, R.transpose(0, 1), x, nc)
+    with pytest.raises(ValueError):
+        K.ell_block_spmv(cols.cpu(), A1, R, x, nc)
+    with pytest.raises(ValueError):
+        K.ell_block_spmv(cols, A1, R, x, nc, y0.cpu())
+    # a row too wide for any tile to fit in shared memory: the launch is
+    # refused and the wrapper raises, it does not take the plain version
+    wide = 30000
+    c = torch.zeros(4, wide, dtype=torch.int32, device=cuda)
+    v = torch.ones(4, wide, dtype=torch.float32, device=cuda)
+    before = dict(K.block_launches)
+    with pytest.raises(RuntimeError):
+        K.ell_block_spmv(c, v, None, torch.ones(2, 4, device=cuda), 4)
+    with pytest.raises(RuntimeError):
+        K.ell_spmv(c, v, torch.ones(4, device=cuda), 4)
+    assert K.block_launches == before
+
+
 def test_each_source_builds_into_its_own_library(monkeypatch):
     """Every ``csrc/*.cu`` is one library named by a hash of its source and
     the nvcc flags (nothing is built on import or here)."""
@@ -243,25 +459,51 @@ def test_each_source_builds_into_its_own_library(monkeypatch):
 
 def test_trace_sums_the_bound_of_each_product():
     """``trace`` tallies, per kernel, the launches of the products the
-    operators issue and their bound (bytes over the HBM rate), and maps the
-    kernels' device events to the same names."""
+    operators make and their bound (bytes over the HBM rate: the block
+    product's whole-product bytes, columns once and every plane once), keeps
+    each launch's row count for the split by rows, and maps the kernels'
+    device events to the same names."""
     from fenapack_tpu_torch import measure, trace
     from fenapack_tpu_torch.ops import sparse
     cols, vals, nc = _random_ell(torch.float64, "cpu")
-    ell, mv = ELL(cols, vals, nc), sparse.ell_spmv
+    ell, mv, bmv = ELL(cols, vals, nc), sparse.ell_spmv, sparse.ell_block_spmv
+    bcols, A1, R, xb, y0 = _random_block(torch.float64, "cpu", 2, True,
+                                         n=40, n_cols=40)
     with trace._bounds() as tally:
         ell.mv(torch.randn(nc, dtype=torch.float64))
         ell.mv(torch.randn(nc, 2, dtype=torch.float64))
-    assert sparse.ell_spmv is mv
+        ELLBlock(bcols, A1, R, 40).mv(xb)
+        ELLBlock(bcols, A1, None, 40).mv(xb, y0)
+    assert sparse.ell_spmv is mv and sparse.ell_block_spmv is bmv
     one, two = (measure.ell_bytes(vals, nc, k) / measure.HBM_BPS
                 for k in (1, 2))
-    assert dict(tally).keys() == {"ell_f64"}
+    assert dict(tally).keys() == {"ell_f64", "ell_block_f64"}
     assert tally["ell_f64"][0] == 2
     assert tally["ell_f64"][1] == pytest.approx(one + two, rel=1e-12)
+    # cols once, A1 + 4 planes of R, 2 components of x and y (and y0)
+    newton = 40 * 7 * (4 + 5 * 8) + 2 * (40 + 40) * 8
+    picard = 40 * 7 * (4 + 8) + 2 * (40 + 2 * 40) * 8
+    assert measure.ell_block_bytes(A1, R, 2, 40) == newton
+    assert measure.ell_block_bytes(A1, None, 2, 40, y0=True) == picard
+    assert tally["ell_block_f64"][0] == 2
+    assert tally["ell_block_f64"][1] == pytest.approx(
+        (newton + picard) / measure.HBM_BPS, rel=1e-12)
+    # the split by rows pairs the i-th launch with the i-th device event
+    each = tally.each["ell_f64"]
+    assert [n for n, _ in each] == [300, 300]
+    split = trace._by_rows(each + tally.each["ell_block_f64"][:1],
+                           [2.0, 3.0, 7.0])
+    assert split["300"]["launches"] == 2 and split["40"]["launches"] == 1
+    assert split["300"]["device_s"] == pytest.approx(5e-6)
+    assert split["300"]["bound_s"] == pytest.approx(one + two, rel=1e-12)
+    assert trace._by_rows(each, [2.0]) is None      # events went missing
     # the names the profiler gives them on the card
     assert trace._kernel_of("void (anonymous namespace)::ell_spmv_kernel<"
                             "double, 1>(int const*, double const*, double c"
                             ) == "ell_f64"
+    assert trace._kernel_of("void (anonymous namespace)::ell_block_spmv_"
+                            "kernel<double, 2, true>(int const*, double co"
+                            ) == "ell_block_f64"
     assert trace._kernel_of("void (anonymous namespace)::bsr_spmv_kernel<"
                             "float, 2>(int const*, float const*)") == "bsr_f32"
     assert trace._kernel_of("void at::native::elementwise_kernel") is None
