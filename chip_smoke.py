@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths on the card, in phases that each print one or
-more lines:
+Drives the port's three paths on the card (the step benchmark, the
+lid-driven cavity, the DFG cylinder), in phases that each print one or more
+lines:
 
   1. device  - require CUDA; print ``nvidia-smi`` name and power limit.
   2. build   - compile every kernel library from csrc/ (one nvcc per source,
@@ -45,6 +46,31 @@ more lines:
                and mass conservation.
   8. cavity-reference - the same schedule at level 1 on the card and on the
                CPU: per-step counts within 1, states within 1e-5.
+  9. cylinder-kernels - every ELL operator of the DFG cylinder path at level
+               2 (328,004 dofs: A1 and the four R_ab of the first Newton
+               state on every velocity level, the P1 bottom operator, D, B^T,
+               Ap on every pressure level, Mp, Kp, the P2 mass) through K3
+               against the plain version in f64 and f32; the block product
+               with R, with R and y0, and without R (the BDF2 stepper's
+               ``A1 + 1.5/dt M``) on every P2 level; the times of A1 at level
+               2 and of both block products beside their bounds, and of the
+               bottom level's dense inverse.
+ 10. cylinder-2d1 - DFG 2D-1 through ``cylinder.build(2, 20)``: Newton to
+               1e-6; asserts convergence, every linear solve under the Krylov
+               cap at true relative residual <= 1e-8, K3 single and block
+               launches > 0 and no BSR launch, max |D u| <= 1e-9, c_D and dP
+               inside the published intervals of Schafer & Turek (1996) and
+               c_L at the level-2 value.
+ 11. cylinder-2d2 - DFG 2D-2 through ``cylinder.build(2, 100, unsteady=True,
+               dt=0.00625)``: 40 semi-implicit BDF2 steps from the impulsive
+               start with the device functional; asserts every step's solve
+               under the cap at <= 1e-8, the functional's last row equal to
+               its recomputation on the host from the last three states,
+               mass conservation, c_D > 0 and block launches > 0.
+ 12. cylinder-reference - card against CPU: 5 BDF2 steps on the level-1
+               obstacle channel, and on the level-0 cylinder the first two
+               Newton steps of 2D-1 and 3 BDF2 steps of 2D-2: per-step counts
+               within 1, states within 1e-6.
 
 Then one JSON line with the kernels' records, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit, no
@@ -72,6 +98,13 @@ HEADLINE = {"f64": "A1 fine (f64)", "f32": "A1 velocity level 2"}
 ELL_SOURCE = "fenapack_tpu_torch/csrc/ell_spmv.cu"
 ELL_REPLACES = "fenapack_tpu/ops/pallas_spmv.py:60"
 ELL_HEADLINE = "A1 velocity level 4"
+CYL_LEVEL, CYL_DT, CYL_STEPS = 2, 0.00625, 40
+CYL_HEADLINE = f"A1 velocity level {CYL_LEVEL}"
+# the JAX package's per-step counts of DFG 2D-1 at level 2 (CPU, f64)
+CYL_JAX_ITERS = [49, 50, 53, 50, 49]
+# Schafer & Turek (1996), DFG 2D-1; c_L: the level-2 discretisation value
+# (the published interval [0.0104, 0.0110] is reached at level 3)
+CD_REF, DP_REF, CL_L2 = (5.5700, 5.5900), (0.1172, 0.1176), (0.0101, 0.0005)
 PTXAS = re.compile(r"Compiling entry function '(\w+)'|(\d+) bytes spill "
                    r"stores, (\d+) bytes spill loads|Used (\d+) registers")
 
@@ -132,7 +165,10 @@ def main():
     print(f"[device] {torch.cuda.get_device_name(0)}; torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
-    from fenapack_tpu_torch import bench, cavity, cavity_mesh, measure
+    from fenapack_tpu_torch import (bench, cavity, cavity_mesh, cylinder,
+                                    cylinder_channel_mesh, measure,
+                                    snap_to_circle)
+    from fenapack_tpu_torch.models import ObstacleChannel2D
     from fenapack_tpu_torch.ops import bsr_spmv, ell_spmv, kernels
     from fenapack_tpu_torch.solvers import gmg
 
@@ -449,26 +485,317 @@ def main():
     _require(diff <= 1e-5, f"level-1 cavity states differ by {diff}")
     done("cavity-reference", t0)
 
-    # ``launches``: counts of the path's own run ("path").  The cavity path
-    # is f64 throughout: each ELL record is its f64 instantiation, and the
-    # f32 one, checked in phase 6 but launched by no path, is nested in it
+    def rel_err(y, yp):
+        torch.cuda.synchronize()
+        abs_err = float((y - yp).abs().max())
+        return abs_err, abs_err / max(float(yp.abs().max()), 1e-300)
+
+    # ---- 9. K3 against the plain version at the cylinder's shapes ------- #
+    t0 = time.perf_counter()
+    chier = gmg.build_hierarchy(cylinder_channel_mesh(0), CYL_LEVEL,
+                                snap=snap_to_circle)
+    cnl = cylinder.build(CYL_LEVEL, 20, device=dev, hier=chier)
+    cus = cylinder.build(CYL_LEVEL, 100, device=dev, unsteady=True,
+                         dt=CYL_DT, hier=chier)
+    torch.cuda.synchronize()
+    print(f"[cylinder-kernels] level {CYL_LEVEL}: {cnl.n} dofs (n_u "
+          f"{cnl.n_u}, n1 {cnl.asm.n1}), velocity levels "
+          f"{[a.n2 for a in cnl.oseen.velocity_hierarchy.asms]} over the P1 "
+          f"bottom of {cnl.oseen.velocity_hierarchy.asms[0].n1}; setup of "
+          f"both solvers {time.perf_counter() - t0:.3f} s", flush=True)
+    crec = {k: {} for k in ("f64", "f32")}
+    n_ops = 0
+    for name, pat, vals64 in cylinder.ell_operators(cnl):
+        n_ops += 1
+        for dt in (torch.float64, torch.float32):
+            kind = ell_spmv._NAMES[dt]
+            tol = F64_TOL if kind == "f64" else F32_TOL
+            vals = vals64.to(dt).contiguous()
+            x = torch.as_tensor(rng.standard_normal(pat.n_cols), dtype=dt,
+                                device=dev)
+            abs_err, rel = rel_err(
+                ell_spmv.ell_spmv(pat.cols, vals, x, pat.n_cols),
+                ell_spmv.ell_spmv_plain(pat.cols, vals, x, pat.n_cols))
+            erec[kind]["max_abs_err"] = max(erec[kind]["max_abs_err"],
+                                            abs_err)
+            _require(rel <= tol, f"cylinder {name} {kind}: kernel disagrees "
+                     f"with plain ({rel} > {tol})")
+            line = (f"[cylinder-kernels] {name:24s} {kind} ELL "
+                    f"{tuple(vals.shape)} nnz {pat.nnz}: max rel err {rel} "
+                    f"(tol {tol})")
+            if name == CYL_HEADLINE:
+                kernel = lambda: ell_spmv.ell_spmv(pat.cols, vals, x,
+                                                   pat.n_cols)
+                plain = lambda: ell_spmv.ell_spmv_plain(pat.cols, vals, x,
+                                                        pat.n_cols)
+                nbytes = measure.ell_bytes(vals, pat.n_cols)
+                t, why = yardsticks(
+                    kernel, plain,
+                    measure.library(measure.csr_library(pat, vals), x),
+                    nbytes, 2 * pat.nnz, dt)
+                crec[kind]["single"] = t
+                line += (f"; {json.dumps(t)}; cuSPARSE CSR "
+                         f"{why or 'taken'}; {nbytes} B")
+            print(line, flush=True)
+    # the block product on every P2 level: the Newton operator (with R, with
+    # R and y0) and the BDF2 stepper's Picard operator (without R)
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    newton_levels, _ = cylinder.velocity_levels(cnl)
+    torch.cuda.synchronize()
+    values_s = time.perf_counter() - ts
+    picard_levels, _ = cylinder.velocity_levels(cus)
+    # the bottom solve's setup, once per linear solve: the inverse of the
+    # masked stacked P1 block (timed on a well-conditioned matrix of its
+    # size)
+    nb = 2 * cnl.oseen.velocity_hierarchy.asms[0].n1
+    B = torch.eye(nb, dtype=torch.float64, device=dev) * 4.0 + torch.as_tensor(
+        rng.standard_normal((nb, nb)), device=dev) / nb
+    inv_ms = measure.cuda_ms(lambda: torch.linalg.inv(B), reps=3, inner=2)
+    print(f"[cylinder-kernels] per linear solve: the level operators, the "
+          f"P1 bottom operator and its inverse (velocity_gmg_values) "
+          f"{values_s:.4f} s; torch.linalg.inv of a ({nb}, {nb}) f64 matrix "
+          f"{inv_ms:.3f} ms", flush=True)
+    del B
+    top = len(newton_levels) - 1
+    for l, ((pat, A1n, Rn), (_, A1p, Rp)) in enumerate(zip(newton_levels,
+                                                           picard_levels)):
+        _require(Rp is None, "the BDF2 stepper's operator has no R")
+        for dt in (torch.float64, torch.float32):
+            kind = ell_spmv._NAMES[dt]
+            tol = F64_TOL if kind == "f64" else F32_TOL
+            A1, R = A1n.to(dt).contiguous(), Rn.to(dt).contiguous()
+            A1b = A1p.to(dt).contiguous()
+            x = torch.as_tensor(rng.standard_normal((2, pat.n_cols)),
+                                dtype=dt, device=dev)
+            y0 = torch.as_tensor(rng.standard_normal((2, pat.n_rows)),
+                                 dtype=dt, device=dev)
+            rels = []
+            for AA, RR, yy in ((A1, R, None), (A1, R, y0), (A1b, None, None),
+                               (A1b, None, y0)):
+                abs_err, rel = rel_err(
+                    ell_spmv.ell_block_spmv(pat.cols, AA, RR, x, pat.n_cols,
+                                            yy),
+                    ell_spmv.ell_block_spmv_plain(pat.cols, AA, RR, x,
+                                                  pat.n_cols, yy))
+                rels.append(rel)
+                brec[kind]["max_abs_err"] = max(brec[kind]["max_abs_err"],
+                                                abs_err)
+            line = (f"[cylinder-kernels] block product velocity level {l} "
+                    f"{kind} ELL {tuple(A1.shape)}: max rel err with R "
+                    f"{rels[0]}, with R and y0 {rels[1]}, without R "
+                    f"{rels[2]}, without R with y0 {rels[3]} (tol {tol})")
+            if l == top:
+                for tag, AA, RR in (("with_R", A1, R),
+                                    ("without_R", A1b, None)):
+                    kernel = (lambda AA=AA, RR=RR: ell_spmv.ell_block_spmv(
+                        pat.cols, AA, RR, x, pat.n_cols))
+                    plain = (lambda AA=AA, RR=RR:
+                             ell_spmv.ell_block_spmv_plain(
+                                 pat.cols, AA, RR, x, pat.n_cols))
+                    # yardstick: the cuSPARSE CSR products it replaces
+                    parts = [(AA, 0), (AA, 1)] + (
+                        [] if RR is None else
+                        [(RR[0, 0], 0), (RR[0, 1], 1), (RR[1, 0], 0),
+                         (RR[1, 1], 1)])
+                    libs = [measure.library(measure.csr_library(pat, v),
+                                            x[b]) for v, b in parts]
+                    calls = [c for c, _ in libs]
+                    lib = ((lambda calls=calls: [c() for c in calls])
+                           if all(calls) else None,
+                           "; ".join(w for _, w in libs if w))
+                    nbytes = measure.ell_block_bytes(AA, RR, 2, pat.n_cols)
+                    t, why = yardsticks(kernel, plain, lib, nbytes,
+                                        measure.ell_block_flops(AA, RR, 2),
+                                        dt)
+                    crec[kind]["block_" + tag] = t
+                    line += (f"; {tag} {json.dumps(t)}; {len(parts)} "
+                             f"cuSPARSE CSR products {why or 'taken'}; "
+                             f"{nbytes} B")
+            print(line, flush=True)
+            _require(max(rels) <= tol, f"cylinder block product level {l} "
+                     f"{kind}: kernel disagrees with plain ({rels} > {tol})")
+    print(f"[cylinder-kernels] {n_ops} operators and {top + 1} block levels "
+          "agree with the plain version", flush=True)
+    del newton_levels, picard_levels
+    done("cylinder-kernels", t0)
+
+    def k3_counts():
+        return (ell_spmv.launches["f64"], ell_spmv.block_launches["f64"],
+                ell_spmv.launches["f32"], ell_spmv.block_launches["f32"],
+                sum(bsr_spmv.launches.values()))
+
+    def max_div(asm, w):
+        n2 = asm.n2
+        return float(sum(asm.const.D[a].mv(w[a * n2:(a + 1) * n2])
+                         for a in range(2)).abs().max())
+
+    # ---- 10. DFG 2D-1 at level 2 on the card ---------------------------- #
+    t0 = time.perf_counter()
+    bsr_spmv.reset_launches()
+    ell_spmv.reset_launches()
+    maxiter = cnl.oseen.config.krylov.maxiter
+    r = cnl.solve(rtol=cylinder.RTOL)
+    torch.cuda.synchronize()
+    d1 = k3_counts()
+    cd, cl, dp = cylinder.coefficients(cnl.asm, r.w, 20)
+    div = max_div(cnl.asm, r.w)
+    far = [(i, a, b) for i, (a, b) in enumerate(zip(r.linear_iters,
+                                                    CYL_JAX_ITERS))
+           if abs(a - b) > 0.1 * b]
+    print(f"[cylinder-2d1] level {CYL_LEVEL}, {cnl.n} dofs: steps "
+          f"{len(r.linear_iters)} iters {r.linear_iters} (JAX CPU f64 record "
+          f"{CYL_JAX_ITERS}; more than 10% away: {far or 'none'}; cap "
+          f"{maxiter}); nonlinear res {r.nonlinear_res}; max linear true rel "
+          f"res {max(r.lin_rel)}; solve {r.wall_time:.3f} s "
+          f"({r.wall_time / len(r.linear_iters):.3f} s per Newton step, "
+          f"{r.wall_time / r.total_linear_iters * 1e3:.2f} ms per FGMRES "
+          f"iteration); K3 f64 launches: single {d1[0]}, block {d1[1]} "
+          f"({(d1[0] + d1[1]) / r.total_linear_iters:.1f} per FGMRES "
+          f"iteration), f32 {d1[2] + d1[3]}, BSR {d1[4]}", flush=True)
+    print(f"[cylinder-2d1] c_D {cd:.6f} (published {CD_REF}), c_L {cl:.6f} "
+          f"(level-2 value {CL_L2[0]} +- {CL_L2[1]}; published 0.0104-"
+          f"0.0110), dP {dp:.6f} (published {DP_REF}); max |D u| {div}",
+          flush=True)
+    _require(r.converged, f"2D-1 did not converge ({r.nonlinear_res})")
+    _require(max(r.linear_iters) < maxiter,
+             f"2D-1: a linear solve hit the Krylov cap {r.linear_iters}")
+    _require(max(r.lin_rel) <= 1e-8,
+             f"2D-1: linear true relative residuals {r.lin_rel}")
+    _require(d1[0] > 0 and d1[1] > 0 and d1[4] == 0,
+             f"2D-1 launches (single, block, f32, f32 block, BSR) {d1}")
+    _require(r.w.shape == (cnl.n,) and bool(torch.isfinite(r.w).all()),
+             "the 2D-1 state is not a finite vector of n dofs")
+    _require(div <= 1e-9, f"2D-1 mass conservation max |D u| = {div}")
+    _require(CD_REF[0] <= cd <= CD_REF[1], f"c_D {cd} outside {CD_REF}")
+    _require(DP_REF[0] <= dp <= DP_REF[1], f"dP {dp} outside {DP_REF}")
+    _require(abs(cl - CL_L2[0]) <= CL_L2[1], f"c_L {cl} not {CL_L2}")
+    del cnl, r
+    done("cylinder-2d1", t0)
+
+    # ---- 11. DFG 2D-2 at level 2: 40 BDF2 steps on the card ------------- #
+    t0 = time.perf_counter()
+    bsr_spmv.reset_launches()
+    ell_spmv.reset_launches()
+    marks = [(time.perf_counter(),) + k3_counts()]
+    r = cus.solve_fused(
+        CYL_STEPS * CYL_DT, functional=cylinder.functional(cus.asm, CYL_DT),
+        keep_history=True,
+        callback=lambda k, t, w: marks.append((time.perf_counter(),)
+                                              + k3_counts()))
+    torch.cuda.synchronize()
+    d2 = k3_counts()
+    per_step = [(b[0] - a[0], b[1] - a[1], b[2] - a[2])
+                for a, b in zip(marks, marks[1:])]
+    hist = cylinder.history(r.functionals, CYL_DT)
+    h = [torch.as_tensor(x, device=dev) for x in r.history[-3:]]
+    n_u = cus.n_u
+    du_dt = (1.5 * h[2][:n_u] - 2.0 * h[1][:n_u] + 0.5 * h[0][:n_u]) / CYL_DT
+    host_row = cylinder.coefficients(cus.asm, h[2], 100, du_dt=du_dt)
+    gap = max(abs(a - b) / max(1.0, abs(b))
+              for a, b in zip(hist[-1, 1:], host_row))
+    div = max_div(cus.asm, r.w)
+    secs = [p[0] for p in per_step]
+    print(f"[cylinder-2d2] level {CYL_LEVEL}, {cus.n} dofs, dt {CYL_DT}: "
+          f"{len(r.linear_iters)} BDF2 steps, iters per step "
+          f"{r.linear_iters} (cap {maxiter}); max linear true rel res "
+          f"{max(r.lin_rel)}; {r.wall_time:.3f} s, seconds per step median "
+          f"{float(np.median(secs)):.4f} min {min(secs):.4f} max "
+          f"{max(secs):.4f} ({r.wall_time / sum(r.linear_iters) * 1e3:.2f} "
+          f"ms per FGMRES iteration); K3 f64 launches per step: single "
+          f"{[p[1] for p in per_step]}, block {[p[2] for p in per_step]} "
+          f"({(d2[0] + d2[1]) / sum(r.linear_iters):.1f} per FGMRES "
+          f"iteration); f32 {d2[2] + d2[3]}, BSR {d2[4]}", flush=True)
+    print(f"[cylinder-2d2] t {hist[-1, 0]:.5f}: c_D {hist[-1, 1]:.8f} c_L "
+          f"{hist[-1, 2]:.8f} dP {hist[-1, 3]:.8f} on the device; recomputed "
+          f"on the host {host_row}; largest difference {gap}; max |D u| "
+          f"{div}; c_D per step {[round(float(v), 4) for v in hist[:, 1]]}",
+          flush=True)
+    _require(len(r.linear_iters) == CYL_STEPS
+             and max(r.linear_iters) < maxiter,
+             f"2D-2: a step's solve hit the Krylov cap {r.linear_iters}")
+    _require(max(r.lin_rel) <= 1e-8,
+             f"2D-2: linear true relative residuals {r.lin_rel}")
+    _require(gap <= 1e-8, f"2D-2: device functional {hist[-1]} against the "
+             f"host's {host_row}")
+    _require(div <= 1e-9, f"2D-2 mass conservation max |D u| = {div}")
+    _require(bool(np.isfinite(hist).all()) and hist[-1, 1] > 0,
+             f"2D-2: c_D {hist[-1, 1]}")
+    _require(bool(torch.isfinite(r.w).all()), "the 2D-2 state is not finite")
+    _require(d2[0] > 0 and d2[1] > 0 and d2[4] == 0,
+             f"2D-2 launches (single, block, f32, f32 block, BSR) {d2}")
+    del cus, r, h
+    done("cylinder-2d2", t0)
+
+    # ---- 12. cylinder reference: card against CPU ----------------------- #
+    t0 = time.perf_counter()
+
+    def obstacle(where):
+        us = ObstacleChannel2D(level=1, device=str(where)).solver(
+            "BRM2", gmg_subsolves=True, unsteady=0.05, scheme="bdf2",
+            **cylinder.CFG)
+        rr = us.solve_fused(5 * 0.05)
+        return rr.w, rr.linear_iters
+
+    def newton_l0(where):
+        rr = cylinder.build(0, 20, device=where).solve(rtol=cylinder.RTOL,
+                                                       max_steps=2)
+        return rr.w, rr.linear_iters
+
+    def bdf2_l0(where):
+        us = cylinder.build(0, 100, device=where, unsteady=True)
+        rr = us.solve_fused(3 * us.dt)
+        return rr.w, rr.linear_iters
+
+    for what, run in (("obstacle channel level 1, 5 BDF2 steps", obstacle),
+                      ("cylinder level 0, 2 Newton steps of 2D-1", newton_l0),
+                      ("cylinder level 0, 3 BDF2 steps of 2D-2", bdf2_l0)):
+        (gw, gi), (cw, ci) = run(dev), run(torch.device("cpu"))
+        diff = float(torch.linalg.norm(gw.cpu() - cw) / torch.linalg.norm(cw))
+        print(f"[cylinder-reference] {what}: iters cuda {gi} cpu {ci}; "
+              f"relative state difference {diff}", flush=True)
+        _require(len(gi) == len(ci)
+                 and all(abs(a - b) <= 1 for a, b in zip(gi, ci)),
+                 f"{what}: counts differ: cuda {gi}, cpu {ci}")
+        _require(diff <= 1e-6, f"{what}: states differ by {diff}")
+    done("cylinder-reference", t0)
+
+    # ``launches``: counts of the paths' own runs, each read just after a
+    # run that began with the counts at 0 (``paths`` splits them).  The ELL
+    # paths are f64 throughout: each ELL record is its f64 instantiation with
+    # the times of the cavity's headline operator, and the f32 one, checked
+    # in phases 6 and 9 but launched by no path, is nested in it; the times
+    # at the cylinder's level-2 shapes are nested under ``cylinder``
+    cyl_paths = (f"cylinder l{CYL_LEVEL} 2D-1",
+                 f"cylinder l{CYL_LEVEL} 2D-2 {CYL_STEPS} steps")
     kernels_line = [{"name": f"bsr_spmv_{k}", "route": "cuda",
                      "source": SOURCE, "replaces": REPLACES[k],
                      "launches": timed[k], "path": "step l2 timed solve",
                      **rec[k]} for k in ("f64", "f32")]
     kernels_line.append({
         "name": "ell_spmv", "route": "cuda", "source": ELL_SOURCE,
-        "replaces": ELL_REPLACES, "launches": cavity_launches["ell_f64"],
-        "path": f"cavity l{cavity.LEVEL} continuation", "dtype": "f64",
-        **erec["f64"], "f32": {"launches": cavity_launches["ell_f32"],
-                               **erec["f32"]}})
+        "replaces": ELL_REPLACES,
+        "launches": cavity_launches["ell_f64"] + d1[0] + d2[0],
+        "paths": {f"cavity l{cavity.LEVEL} continuation":
+                  cavity_launches["ell_f64"],
+                  cyl_paths[0]: d1[0], cyl_paths[1]: d2[0]},
+        "dtype": "f64", **erec["f64"],
+        "cylinder": crec["f64"]["single"],
+        "f32": {"launches": cavity_launches["ell_f32"] + d1[2] + d2[2],
+                **erec["f32"], "cylinder": crec["f32"]["single"]}})
     kernels_line.append({
         "name": "ell_block_spmv", "route": "cuda", "source": ELL_SOURCE,
         "replaces": ELL_REPLACES,
-        "launches": cavity_launches["ell_block_f64"],
-        "path": f"cavity l{cavity.LEVEL} continuation", "dtype": "f64",
-        **brec["f64"], "f32": {"launches": cavity_launches["ell_block_f32"],
-                               **brec["f32"]}})
+        "launches": cavity_launches["ell_block_f64"] + d1[1] + d2[1],
+        "paths": {f"cavity l{cavity.LEVEL} continuation":
+                  cavity_launches["ell_block_f64"],
+                  cyl_paths[0]: d1[1], cyl_paths[1]: d2[1]},
+        "dtype": "f64", **brec["f64"],
+        "cylinder": {k: v for k, v in crec["f64"].items() if k != "single"},
+        "f32": {"launches": cavity_launches["ell_block_f32"] + d1[3] + d2[3],
+                **brec["f32"],
+                "cylinder": {k: v for k, v in crec["f32"].items()
+                             if k != "single"}}})
     print(f"[time] total {time.perf_counter() - t_start:.3f} s; phases "
           f"{json.dumps(phase_s)}", flush=True)
     print(json.dumps({"kernels": kernels_line}), flush=True)

@@ -5,8 +5,8 @@ and dofmap setup, static-sparsity Taylor-Hood assembly, ELL and block-sparse
 (BSR) operators applied by hand-written CUDA kernels, flexible GMRES around
 the upper Schur fieldsplit with PCD-BRM1/BRM2 (enclosed flow included),
 geometric multigrid and dense subsolves, Picard and Newton drivers (with
-Anderson mixing on the Picard full solve) and the model entry points
-(``models``).  The JAX package ``fenapack_tpu`` is the reference; the
+Anderson mixing on the Picard full solve), theta-scheme and BDF2 time
+stepping, drag/lift functionals and the model entry points (``models``).  The JAX package ``fenapack_tpu`` is the reference; the
 layout of this package mirrors it module by module.
 
 This package imports ``torch``, ``numpy`` and (for host setup) ``scipy``,
@@ -14,8 +14,10 @@ never ``jax``.
 """
 
 from .fem.mesh import (TriMesh, rectangle_mesh, box_union_mesh,
-                       backward_step_mesh, cavity_mesh, refine_uniform, WALL,
-                       INFLOW, OUTFLOW)
+                       backward_step_mesh, cavity_mesh, channel_mesh,
+                       obstacle_channel_mesh, cylinder_channel_mesh,
+                       triangle_quality, snap_to_circle, refine_uniform, WALL,
+                       INFLOW, OUTFLOW, CYLINDER)
 from .fem.dofmap import TaylorHood, DirichletBC, merge_bcs
 from .fem.assemble import NSAssembler, ConstOperators
 from .ops.sparse import (ELL, BlockELL, SparsityPattern, BlockSparsityPattern,
@@ -29,19 +31,28 @@ from .solvers.fieldsplit import make_fieldsplit_upper
 from .solvers.oseen import OseenSolver
 from .solvers.nonlinear import (NonlinearSolver, NonlinearResult,
                                 FullSolveResult)
+from .solvers.unsteady import UnsteadySolver, UnsteadyResult
 from .solvers import gmg
+from .utils.functionals import (boundary_reaction, eval_p1, p1_point_weights,
+                                make_device_functional)
+from .utils.io import save_checkpoint, load_checkpoint
 from . import models
 
 __version__ = "0.1.0"
 
 __all__ = [
     "TriMesh", "rectangle_mesh", "box_union_mesh", "backward_step_mesh",
-    "cavity_mesh", "refine_uniform", "WALL", "INFLOW", "OUTFLOW",
+    "cavity_mesh", "channel_mesh", "obstacle_channel_mesh",
+    "cylinder_channel_mesh", "triangle_quality", "snap_to_circle",
+    "refine_uniform", "WALL", "INFLOW", "OUTFLOW", "CYLINDER",
     "TaylorHood", "DirichletBC", "merge_bcs", "NSAssembler",
     "ConstOperators", "ELL", "BlockELL", "SparsityPattern",
     "BlockSparsityPattern", "pattern_from_dofmaps",
     "SolverConfig", "KrylovConfig", "PCDConfig", "SubsolveConfig",
     "MultigridConfig", "VelocityConfig", "override", "overrides", "fgmres",
     "FGMRESResult", "make_pcd_apply", "make_fieldsplit_upper", "OseenSolver",
-    "NonlinearSolver", "NonlinearResult", "FullSolveResult", "gmg", "models",
+    "NonlinearSolver", "NonlinearResult", "FullSolveResult",
+    "UnsteadySolver", "UnsteadyResult", "gmg", "models",
+    "boundary_reaction", "eval_p1", "p1_point_weights",
+    "make_device_functional", "save_checkpoint", "load_checkpoint",
 ]

@@ -6,8 +6,8 @@ static-sparsity operators with one ``index_add_`` per operator.  Constant
 operators (viscous Laplacian L, divergence D and gradient DT, pressure mass
 Mp and stiffness Ap) are assembled once; the wind-dependent ones (convection
 N(w), the Newton reaction blocks R_ab(w), pressure convection Kp with the
-BRM2 inflow surface term) are plain functions of the current velocity
-iterate.
+BRM2 inflow surface term, the P1 streamline diffusion of the p-coarse
+multigrid level) are plain functions of the current velocity iterate.
 
 Precision follows the JAX package: a wind of lower precision than the
 assembler is promoted before the element integrals, and ``compute32`` runs
@@ -24,7 +24,7 @@ import torch
 from . import elements as el
 from .dofmap import TaylorHood
 from .mesh import INFLOW
-from ..ops.sparse import pattern_from_dofmaps
+from ..ops.sparse import BlockSparsityPattern, pattern_from_dofmaps
 
 
 @dataclasses.dataclass
@@ -33,12 +33,16 @@ class ConstOperators:
     (applied per component); ``D[a]``/``DT[a]`` the divergence/gradient
     blocks with the ``-int q d_a u_a`` sign, so the system is
     ``[[A, D^T], [D, 0]]``; ``Mp`` is scaled by 1/nu; ``Ap`` is unscaled.
-    A pressure-only assembler leaves ``L``, ``D`` and ``DT`` empty."""
+    A pressure-only assembler leaves ``L``, ``D`` and ``DT`` empty.  ``M2``
+    is the unscaled scalar P2 mass (the M/dt of the unsteady schemes), kept
+    in the ELL layout only: a block-sparse set leaves it None and
+    :meth:`NSAssembler.mass2` assembles it on demand."""
     L: Optional[object]
     Mp: object
     Ap: object
     D: Tuple[object, ...]
     DT: Tuple[object, ...]
+    M2: Optional[object] = None
 
 
 class NSAssembler:
@@ -83,13 +87,15 @@ class NSAssembler:
         self.nc = mesh.num_cells
         self._cd2_np = W.V.cell_dofs.astype(np.int64)
         self._cd1_np = W.Q.cell_dofs.astype(np.int64)
+        # cell diameters (longest edge), read by the streamline diffusion
+        h_cell = np.linalg.norm(v - np.roll(v, 1, axis=1), axis=2).max(axis=1)
 
         t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,
                                       device=self.device)
         self.cd2 = torch.as_tensor(self._cd2_np, device=self.device)
         self.cd1 = torch.as_tensor(self._cd1_np, device=self.device)
         self.Jinv, self.dphi2, self.g1 = t(Jinv), t(dphi2), t(g1)
-        self.adet, self.qw = t(adet), t(qw)
+        self.adet, self.qw, self.h_cell = t(adet), t(qw), t(h_cell)
         self.phi2, self.phi1 = t(phi2), t(phi1)
         self.wdet = self.adet[:, None] * self.qw[None, :]   # (nc, nq)
         self._host_tabs = dict(Jinv=Jinv, dphi2=dphi2, g1=g1, phi2=phi2,
@@ -198,17 +204,41 @@ class NSAssembler:
         R = torch.einsum("q,ql,qjk->ljk", qw, phi1, dphi2)
         div_all = -torch.einsum("c,ljk,cka->clja", adet, R, Jinv)
         div = [div_all[..., a] for a in range(self.dim)]
+        M2 = None
+        if not isinstance(p2, BlockSparsityPattern):
+            M2 = p2.matrix(self.mass2_values(hi=hi).to(od))
         return ConstOperators(
             L=asm_op(p2, visc),
             Mp=asm_op(p1, mass_p1), Ap=asm_op(p1, stiff_p1),
             D=tuple(asm_op(pdiv, da) for da in div),
-            DT=tuple(asm_op(pdivT, da.transpose(1, 2)) for da in div))
+            DT=tuple(asm_op(pdivT, da.transpose(1, 2)) for da in div),
+            M2=M2)
 
     # ------------------------------------------------------------------ #
     def split_u(self, u: torch.Tensor):
         """Components of the stacked velocity vector."""
         n2 = self.n2
         return [u[a * n2:(a + 1) * n2] for a in range(self.dim)]
+
+    def mass2_values(self, hi: bool = False) -> torch.Tensor:
+        """Scalar P2 mass values in the layout of the ``hi`` pattern."""
+        mref = torch.einsum("q,qi,qj->ij", self.qw, self.phi2, self.phi2)
+        elem = self.adet[:, None, None] * mref[None]
+        return self._pats(hi)[0].assemble_values(elem)
+
+    def mass2(self, hi: bool = True):
+        """The scalar P2 mass operator of the ``hi`` set: the stored
+        constant, or assembled on demand where the set does not keep it."""
+        M2 = (self.const_hi if hi else self.const).M2
+        if M2 is None:
+            M2 = self._pats(hi)[0].matrix(self.mass2_values(hi=hi))
+        return M2
+
+    def wind_at_quad(self, u: torch.Tensor) -> torch.Tensor:
+        """The stacked velocity at the cells' quadrature points,
+        (nc, nq, d)."""
+        ucell = torch.stack([c[self.cd2] for c in self.split_u(u)], dim=-1)
+        return torch.einsum("qi,cid->cqd", self.phi2.to(u.dtype), ucell)
 
     def _flat_tables(self):
         """Quadrature tables that turn the per-step element integrals into
@@ -348,6 +378,30 @@ class NSAssembler:
         flat.index_add_(0, self.kp_surf_pos, elem_s.reshape(-1))
         return flat.reshape(vals.shape)
 
+    def supg_p1_values(self, u: torch.Tensor) -> torch.Tensor:
+        """Streamline-diffusion values for the scalar P1
+        convection-diffusion operator ``nu Ap + nu Kp(u)``, the p-coarse
+        bottom level of the velocity multigrid
+        (``solvers/gmg.py::PCoarseTransfer``).  The Elman-Silvester-Wathen
+        delta ``h / (2 |w|) (1 - 1 / Pe)`` where the cell Peclet number
+        ``Pe = |w| h / (2 nu)`` exceeds 1, on P1 gradients (constant per
+        cell): ``delta (w . grad q_l)(w . grad q_m)`` at every quadrature
+        point.  Without it the bottom level's exact inverse amplifies the
+        oscillatory Galerkin modes at Pe > 1."""
+        uq = self.wind_at_quad(u)                          # (nc, nq, d)
+        dt = uq.dtype
+        umag = torch.sqrt(torch.sum(uq * uq, dim=-1))      # (nc, nq)
+        h = self.h_cell.to(dt)[:, None]
+        pe = umag * h / (2.0 * self.nu)
+        delta = torch.where(
+            pe > 1.0,
+            h / torch.clamp(2.0 * umag, min=1e-30)
+            * (1.0 - 1.0 / torch.clamp(pe, min=1.0)),
+            torch.zeros_like(pe))
+        v = torch.einsum("cqd,cmd->cqm", uq, self.g1.to(dt))
+        elem = torch.einsum("cq,cql,cqm->clm", self.wdet.to(dt) * delta, v, v)
+        return self.pat_p1.assemble_values(elem)
+
     def picard_matrix_values(self, u: torch.Tensor, hi: bool = False,
                              compute32: bool = False) -> torch.Tensor:
         """A1 = nu * L + N(u) scalar values (applied to each component)."""
@@ -355,17 +409,26 @@ class NSAssembler:
         conv = self.convection_values(u, hi=hi, compute32=compute32)
         return self.nu * L.vals.to(conv.dtype) + conv
 
-    def residual(self, u: torch.Tensor, p: torch.Tensor, hi: bool = True,
-                 compute32: bool = False
+    def residual(self, u: torch.Tensor, p: Optional[torch.Tensor],
+                 hi: bool = True, compute32: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Steady NS residual with zero body force and natural outflow:
         ``ru_a = A1(u) u_a + DT_a p``, ``rp = sum_a D_a u_a`` (BC masking
-        by the caller).  ``hi`` selects the high-precision operators."""
+        by the caller).  ``p=None`` leaves the pressure gradient out: the
+        convection-diffusion part alone, the theta-weighted piece of the
+        unsteady residuals.  ``hi`` selects the high-precision operators."""
         A1 = self._pats(hi)[0].matrix(
             self.picard_matrix_values(u, hi=hi, compute32=compute32))
         c = self.const_hi if hi else self.const
         comps = self.split_u(u)
-        ru = torch.cat([A1.mv(comps[a]) + c.DT[a].mv(p)
-                        for a in range(self.dim)])
+        ru = torch.cat([A1.mv(comps[a]) for a in range(self.dim)])
+        if p is not None:
+            ru = ru + self.grad_p(p, hi=hi)
         rp = sum(c.D[a].mv(comps[a]) for a in range(self.dim))
         return ru, rp
+
+    def grad_p(self, p: torch.Tensor, hi: bool = True) -> torch.Tensor:
+        """The pressure gradient ``B^T p`` stacked over the components
+        (unscaled in every time scheme, as the Jacobian's block is)."""
+        c = self.const_hi if hi else self.const
+        return torch.cat([c.DT[a].mv(p) for a in range(self.dim)])

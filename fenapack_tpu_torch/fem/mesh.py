@@ -2,7 +2,8 @@
 
 The 2D part of ``fenapack_tpu/fem/mesh.py``, copied: structured
 triangulations of axis-aligned box unions (rectangle, backward-facing step,
-lid-driven cavity), uniform red refinement with parent tracking (the
+lid-driven cavity, channels), the graded and snapped mesh of the DFG
+cylinder, uniform red refinement with parent tracking (the
 geometric-multigrid prolongation stencil), edge/facet topology and boundary
 facet markers.  The solver only sees the frozen index and coordinate arrays
 built here.
@@ -264,6 +265,7 @@ def _propagate_markers(coarse: TriMesh, fine: TriMesh) -> None:
 
 # Facet marker ids used across demos/tests.
 WALL, INFLOW, OUTFLOW = 1, 2, 3
+CYLINDER = 4
 
 
 def backward_step_mesh(level: int = 0, length: float = 5.0) -> TriMesh:
@@ -293,3 +295,188 @@ def cavity_mesh(level: int = 0) -> TriMesh:
         INFLOW: lambda x: x[:, 1] > 1.0 - tol,
     })
     return mesh
+
+
+def channel_mesh(level: int = 0, length: float = 4.0) -> TriMesh:
+    """Straight channel [0,L]x[0,1]: inflow x=0, outflow x=L, walls y=0,1."""
+    h = 0.25 / (2 ** level)
+    mesh = rectangle_mesh(0.0, 0.0, length, 1.0, int(round(length / h)), int(round(1.0 / h)))
+    tol = 1e-9
+    mesh.mark_boundary({
+        WALL: lambda x: np.ones(x.shape[0], dtype=bool),
+        INFLOW: lambda x: x[:, 0] < tol,
+        OUTFLOW: lambda x: x[:, 0] > length - tol,
+    })
+    return mesh
+
+
+def obstacle_channel_mesh(level: int = 0, length: float = 6.0) -> TriMesh:
+    """Channel [0,L]x[0,1] with a square obstacle [1.5,2]x[0.375,0.625].
+
+    The structured-mesh analogue of the reference's unsteady
+    flow-past-a-cylinder workload (BASELINE config 3 "channel/cylinder";
+    the square cylinder is itself a standard vortex-shedding benchmark).
+    Inflow x=0, outflow x=L; the obstacle surface carries WALL markers
+    automatically (it is boundary).  level 0 has h = 1/8.
+    """
+    h = 0.125 / (2 ** level)
+    ox0, ox1, oy0, oy1 = 1.5, 2.0, 0.375, 0.625
+    mesh = box_union_mesh([
+        (0.0, 0.0, ox0, 1.0),
+        (ox0, 0.0, ox1, oy0),
+        (ox0, oy1, ox1, 1.0),
+        (ox1, 0.0, length, 1.0),
+    ], h)
+    tol = 1e-9
+    mesh.mark_boundary({
+        WALL: lambda x: np.ones(x.shape[0], dtype=bool),
+        INFLOW: lambda x: x[:, 0] < tol,
+        OUTFLOW: lambda x: x[:, 0] > length - tol,
+    })
+    return mesh
+
+
+def _graded_axis(x0: float, x1: float, h_coarse: float,
+                 fine_regions, slope: float = 0.25) -> np.ndarray:
+    """Node positions on [x0, x1] with target spacing ``h(x)``: ``h_fine``
+    inside each ``(a, b, h_fine)`` region, growing linearly at ``slope``
+    away from it, capped at ``h_coarse``.  Generated by explicit stepping
+    (x_{k+1} = x_k + h(x_k)) then affinely rescaled to land on x1 exactly.
+    """
+    def h_of(x):
+        h = h_coarse
+        for (a, b, hf) in fine_regions:
+            if x < a:
+                h = min(h, hf + slope * (a - x))
+            elif x > b:
+                h = min(h, hf + slope * (x - b))
+            else:
+                h = min(h, hf)
+        return h
+
+    pts = [x0]
+    while pts[-1] < x1 - 1e-12:
+        pts.append(pts[-1] + h_of(pts[-1]))
+    pts = np.asarray(pts)
+    # rescale the tail so the final node is exactly x1 (distributes the
+    # overshoot multiplicatively over the steps; max perturbation < h/L)
+    pts = x0 + (pts - x0) * (x1 - x0) / (pts[-1] - x0)
+    return pts
+
+
+def _tensor_tri_mesh(xs: np.ndarray, ys: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Vertices + right-diagonal triangles of a (non-uniform) tensor grid."""
+    nx, ny = xs.shape[0] - 1, ys.shape[0] - 1
+    X, Y = np.meshgrid(xs, ys, indexing="ij")
+    vertices = np.stack([X.ravel(), Y.ravel()], axis=1)
+
+    def vid(i, j):
+        return i * (ny + 1) + j
+
+    I, J = np.meshgrid(np.arange(nx), np.arange(ny), indexing="ij")
+    I, J = I.ravel(), J.ravel()
+    a, b, c, d = vid(I, J), vid(I + 1, J), vid(I + 1, J + 1), vid(I, J + 1)
+    tris = np.concatenate([np.stack([a, b, c], 1), np.stack([a, c, d], 1)])
+    return vertices, tris
+
+
+def cylinder_channel_mesh(level: int = 0) -> TriMesh:
+    """Schafer-Turek "flow around a cylinder" channel (benchmark 2D-1/2/3):
+    [0, 2.2] x [0, 0.41] with a circular hole of radius 0.05 at (0.2, 0.2).
+
+    The reference's unsteady demo geometry (BASELINE config 3); upstream
+    gets the curved boundary from a DOLFIN/gmsh mesh — here a graded tensor
+    grid is cut and SNAPPED: vertices within half a local cell of the
+    circle are projected onto it, cells whose centroid falls inside are
+    dropped, and a few Laplacian smoothing passes restore quality in the
+    snap band.  The hole boundary is an inscribed polygon through
+    on-circle vertices (geometric error O(h^2), refining with ``level``).
+
+    Facet markers: INFLOW x=0, OUTFLOW x=2.2, WALL y=0/0.41, CYLINDER on
+    the hole.  level 0: h_fine = r/4 at the cylinder, h_coarse ~ 0.05.
+    """
+    r, cx, cy = 0.05, 0.2, 0.2
+    hf = 0.0125 / 2 ** level
+    hc = 0.05 / 2 ** level
+    # fine band around the cylinder + a moderately refined near wake
+    xs = _graded_axis(0.0, 2.2, hc, [(cx - 3 * r, cx + 4 * r, hf),
+                                     (cx + 4 * r, cx + 12 * r, 2 * hf)])
+    ys = _graded_axis(0.0, 0.41, hc, [(cy - 3 * r, cy + 3 * r, hf)])
+    vertices, tris = _tensor_tri_mesh(xs, ys)
+
+    c = np.array([cx, cy])
+    d = np.linalg.norm(vertices - c, axis=1)
+    # snap: project near-circle vertices exactly onto the circle
+    snap = np.abs(d - r) < 0.5 * hf
+    vertices[snap] = c + r * (vertices[snap] - c) / d[snap, None]
+
+    # drop cells whose centroid lies inside the (snapped) circle
+    centroids = vertices[tris].mean(axis=1)
+    keep = np.linalg.norm(centroids - c, axis=1) >= r
+    tris = tris[keep]
+    # safety: any surviving vertex strictly inside goes onto the circle too
+    d = np.linalg.norm(vertices - c, axis=1)
+    inside = d < r * (1 - 1e-12)
+    used_mask = np.zeros(vertices.shape[0], dtype=bool)
+    used_mask[np.unique(tris)] = True
+    fix = inside & used_mask
+    vertices[fix] = c + r * (vertices[fix] - c) / np.maximum(d[fix, None], 1e-30)
+
+    # Laplacian smoothing in the snap band (quality repair): move interior
+    # vertices near the hole toward their neighbor mean; circle and outer
+    # boundary vertices stay fixed
+    used = np.unique(tris)
+    remap = np.full(vertices.shape[0], -1, dtype=np.int64)
+    remap[used] = np.arange(used.shape[0])
+    verts = vertices[used]
+    cells = remap[tris]
+    on_circle = np.abs(np.linalg.norm(verts - c, axis=1) - r) < 1e-12
+    on_outer = ((verts[:, 0] < 1e-12) | (verts[:, 0] > 2.2 - 1e-12)
+                | (verts[:, 1] < 1e-12) | (verts[:, 1] > 0.41 - 1e-12))
+    dist = np.linalg.norm(verts - c, axis=1)
+    movable = (~on_circle) & (~on_outer) & (dist < 3.5 * r)
+    ev = np.concatenate([cells[:, [0, 1]], cells[:, [1, 2]], cells[:, [0, 2]]])
+    ev = np.unique(np.sort(ev, axis=1), axis=0)
+    for _ in range(8):
+        acc = np.zeros_like(verts)
+        cnt = np.zeros(verts.shape[0])
+        np.add.at(acc, ev[:, 0], verts[ev[:, 1]])
+        np.add.at(acc, ev[:, 1], verts[ev[:, 0]])
+        np.add.at(cnt, ev[:, 0], 1)
+        np.add.at(cnt, ev[:, 1], 1)
+        mean = acc / np.maximum(cnt, 1)[:, None]
+        verts[movable] += 0.5 * (mean[movable] - verts[movable])
+
+    mesh = _build_topology(verts, cells)
+    tol = 1e-9
+    mesh.mark_boundary({
+        WALL: lambda x: np.ones(x.shape[0], dtype=bool),
+        INFLOW: lambda x: x[:, 0] < tol,
+        OUTFLOW: lambda x: x[:, 0] > 2.2 - tol,
+        CYLINDER: lambda x: np.linalg.norm(x - c, axis=1) < r * 1.05,
+    })
+    return mesh
+
+
+def triangle_quality(mesh: TriMesh) -> np.ndarray:
+    """Per-cell quality 4*sqrt(3)*area / sum(edge^2): 1 = equilateral."""
+    p = mesh.vertices[mesh.cells]
+    e = p - np.roll(p, 1, axis=1)
+    l2 = (e ** 2).sum(axis=2).sum(axis=1)
+    area = 0.5 * np.abs((p[:, 1, 0] - p[:, 0, 0]) * (p[:, 2, 1] - p[:, 0, 1])
+                        - (p[:, 2, 0] - p[:, 0, 0]) * (p[:, 1, 1] - p[:, 0, 1]))
+    return 4 * np.sqrt(3.0) * area / np.maximum(l2, 1e-300)
+
+
+def snap_to_circle(mesh: TriMesh, center=(0.2, 0.2), r: float = 0.05,
+                   marker: int = CYLINDER) -> None:
+    """Project all vertices of ``marker``-marked boundary facets onto the
+    circle (in place).  Used as the ``snap`` hook of
+    ``gmg.build_hierarchy`` so each refinement of a cylinder mesh pulls
+    the new chord-midpoint vertices back onto the true geometry."""
+    c = np.asarray(center, dtype=np.float64)
+    on = mesh.facet_markers == marker
+    vids = np.unique(mesh.edges[mesh.boundary_facets[on]])
+    d = np.linalg.norm(mesh.vertices[vids] - c, axis=1)
+    mesh.vertices[vids] = c + r * (mesh.vertices[vids] - c) / np.maximum(
+        d[:, None], 1e-30)

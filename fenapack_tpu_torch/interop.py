@@ -48,14 +48,16 @@ def pattern_index(arrays: Mapping[str, np.ndarray], *, device) -> dict:
 def const_operators(arrays: Mapping[str, object], *, device,
                     dtype: Optional[torch.dtype] = None) -> ConstOperators:
     """A :class:`ConstOperators` set from per-operator array mappings:
-    ``L``, ``Mp``, ``Ap`` are mappings as for :func:`operator`, ``D`` and
-    ``DT`` sequences of them (one per direction)."""
+    ``L``, ``Mp``, ``Ap`` and (optional) ``M2`` are mappings as for
+    :func:`operator`, ``D`` and ``DT`` sequences of them (one per
+    direction)."""
     op = lambda a: operator(a, device=device, dtype=dtype)
     return ConstOperators(
         L=op(arrays["L"]) if arrays.get("L") is not None else None,
         Mp=op(arrays["Mp"]), Ap=op(arrays["Ap"]),
         D=tuple(op(a) for a in arrays.get("D", ())),
-        DT=tuple(op(a) for a in arrays.get("DT", ())))
+        DT=tuple(op(a) for a in arrays.get("DT", ())),
+        M2=op(arrays["M2"]) if arrays.get("M2") is not None else None)
 
 
 def reaction_values(R: np.ndarray, *, device,

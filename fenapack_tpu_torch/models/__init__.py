@@ -1,4 +1,6 @@
 """Canonical problem definitions (the framework's workload zoo)."""
-from .problems import StepFlow2D, LidDrivenCavity
+from .problems import (StepFlow2D, LidDrivenCavity, Channel2D,
+                       ObstacleChannel2D, CylinderChannel2D)
 
-__all__ = ["StepFlow2D", "LidDrivenCavity"]
+__all__ = ["StepFlow2D", "LidDrivenCavity", "Channel2D",
+           "ObstacleChannel2D", "CylinderChannel2D"]

@@ -1,5 +1,5 @@
 """Canonical problem definitions, the port of
-``fenapack_tpu/models/problems.py`` (2D steady problems).
+``fenapack_tpu/models/problems.py`` (the 2D problems).
 
 Each problem is a small declarative class that builds the assembler,
 boundary conditions and (optionally multigrid-equipped) solver in one call:
@@ -10,11 +10,12 @@ boundary conditions and (optionally multigrid-equipped) solver in one call:
     res = nl.solve(rtol=1e-5)
 
 Every problem exposes ``mesh()``, ``assembler()``, ``bcs(asm)`` and
-``solver(...)`` with dotted config overrides passed through.  Operators are
+``solver(...)`` with dotted config overrides passed through
+(``unsteady=dt`` returns a time stepper).  Operators are
 stored in the ELL layout in the problem's dtype, as the JAX models build
 them.  ``device`` defaults to ``"cuda"``: the entry points run on the card
-unless the caller asks for the CPU.  Unsteady solvers and 3D problems are
-not ported yet and raise.
+unless the caller asks for the CPU.  3D problems are not ported yet and
+raise.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from ..fem.dofmap import DirichletBC
 from ..solvers import gmg
 from ..solvers.config import SolverConfig, overrides
 from ..solvers.nonlinear import NonlinearSolver
+from ..solvers.unsteady import UnsteadySolver
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -59,6 +61,11 @@ class _ProblemBase:
     def noslip_markers(self):
         return [meshmod.WALL]
 
+    def snap(self):
+        """Optional in-place boundary-projection hook applied after each
+        refinement (curved geometries; see ``mesh.snap_to_circle``)."""
+        return None
+
     def enclosed(self) -> bool:
         return False
 
@@ -76,13 +83,16 @@ class _ProblemBase:
         multigrid hierarchy whose fine mesh it is."""
         if self.dim != 2:
             raise NotImplementedError("3D problems are not ported yet")
+        snap = self.snap()
         if gmg_levels is None:
             m = self._base_mesh()
             for _ in range(self.level):
                 m = meshmod.refine_uniform(m)[0]
+                if snap is not None:
+                    snap(m)
             return m
         return gmg.build_hierarchy(self._base_mesh(),
-                                   max(self.level, gmg_levels))
+                                   max(self.level, gmg_levels), snap=snap)
 
     def assembler(self, mesh=None, **asm_kw):
         m = self.mesh() if mesh is None else mesh
@@ -98,14 +108,15 @@ class _ProblemBase:
 
     def solver(self, pcd: str = "BRM2", linearization: str = "picard",
                gmg_subsolves: bool = False,
-               unsteady: Optional[float] = None, asm=None, hier=None,
-               **config_overrides) -> NonlinearSolver:
-        """Build the solver.  ``gmg_subsolves`` equips velocity and Ap
+               unsteady: Optional[float] = None, theta: float = 1.0,
+               scheme: str = "theta", asm=None, hier=None,
+               **config_overrides):
+        """Build the solver: a :class:`NonlinearSolver`, or with
+        ``unsteady=dt`` an :class:`UnsteadySolver` (``scheme="bdf2"`` for
+        the second-order stepper).  ``gmg_subsolves`` equips velocity and Ap
         multigrid hierarchies; without it both subsolves are dense LU.  To
         reuse a pre-built assembler on the multigrid path, pass the
         hierarchy it was built on too (``asm.mesh is hier.fine``)."""
-        if unsteady is not None:
-            raise NotImplementedError("unsteady solvers are not ported yet")
         method = "gmg" if gmg_subsolves else "lu"
         over = {"pcd.variant": pcd, "dtype": self.dtype,
                 "velocity.method": method, "pcd.ap.method": method}
@@ -131,10 +142,13 @@ class _ProblemBase:
             asm = self.assembler()
         over.update(config_overrides)
         cfg = overrides(SolverConfig(), over)
-        return NonlinearSolver(asm, self.bcs(asm), cfg, pcd_marker=marker,
-                               linearization=linearization,
-                               enclosed=self.enclosed(),
-                               ap_hierarchy=ap_h, velocity_hierarchy=v_h)
+        common = dict(pcd_marker=marker, linearization=linearization,
+                      enclosed=self.enclosed(), ap_hierarchy=ap_h,
+                      velocity_hierarchy=v_h)
+        if unsteady is not None:
+            return UnsteadySolver(asm, self.bcs(asm), cfg, dt=unsteady,
+                                  theta=theta, scheme=scheme, **common)
+        return NonlinearSolver(asm, self.bcs(asm), cfg, **common)
 
 
 @dataclasses.dataclass
@@ -170,3 +184,65 @@ class LidDrivenCavity(_ProblemBase):
             v[:, 0] = 1.0
             return v
         return lid
+
+
+@dataclasses.dataclass
+class Channel2D(_ProblemBase):
+    """Straight channel (Poiseuille; unsteady workload of BASELINE config
+    3)."""
+    length: float = 4.0
+    nu: float = 0.1
+
+    def _base_mesh(self):
+        return meshmod.channel_mesh(0, length=self.length)
+
+    def inflow_profile(self):
+        def f(x):
+            v = np.zeros((x.shape[0], 2))
+            v[:, 0] = 4 * x[:, 1] * (1 - x[:, 1])
+            return v
+        return f
+
+
+@dataclasses.dataclass
+class ObstacleChannel2D(Channel2D):
+    """Channel with a square obstacle (config 3 "channel/cylinder")."""
+    length: float = 6.0
+    nu: float = 0.02
+
+    def _base_mesh(self):
+        return meshmod.obstacle_channel_mesh(0, length=self.length)
+
+
+@dataclasses.dataclass
+class CylinderChannel2D(_ProblemBase):
+    """Schafer-Turek "flow around a cylinder" channel (DFG 2D-1 / 2D-2;
+    BASELINE config 3).
+
+    Snapped-circle mesh: each refinement projects the new boundary vertices
+    back onto the true circle (``mesh.snap_to_circle``), so the polygonal
+    geometry error converges with the level.  ``u_mean`` sets the benchmark
+    regime: 0.2 is Re = 20 (2D-1, steady), 1.0 is Re = 100 (2D-2,
+    shedding), with nu fixed at 1e-3 by the benchmark's definition.  Entry
+    point with the benchmark's settings: ``fenapack_tpu_torch.cylinder``.
+    """
+    nu: float = 0.001
+    u_mean: float = 0.2          # mean inflow; the parabola's peak is 1.5x
+
+    def _base_mesh(self):
+        return meshmod.cylinder_channel_mesh(0)
+
+    def snap(self):
+        return meshmod.snap_to_circle
+
+    def noslip_markers(self):
+        return [meshmod.WALL, meshmod.CYLINDER]
+
+    def inflow_profile(self):
+        u_m = 1.5 * self.u_mean
+
+        def f(x):
+            v = np.zeros((x.shape[0], 2))
+            v[:, 0] = 4.0 * u_m * x[:, 1] * (0.41 - x[:, 1]) / 0.41 ** 2
+            return v
+        return f

@@ -2,9 +2,9 @@
 
 The subset of ``fenapack_tpu/solvers/config.py`` (plain dataclasses) that
 the port reads: every field here changes what a solve does.  The JAX
-package's other options (lumped and Chebyshev velocity subsolves, the minres
-smoother, mixed-precision IR rounds, recycling, split assembly, SUPG) come
-back with the code that ports them.
+package's other options (lumped and Chebyshev velocity subsolves,
+mixed-precision IR rounds, recycling, split assembly, SUPG) come back with
+the code that ports them.
 """
 from __future__ import annotations
 
@@ -14,8 +14,8 @@ from typing import Any, Optional, Tuple
 
 @dataclasses.dataclass(frozen=True)
 class MultigridConfig:
-    """Geometric multigrid V-cycles with damped Jacobi smoothing (the
-    velocity block; the pressure Ap when its method is ``gmg``)."""
+    """Geometric multigrid V-cycles (the velocity block; the pressure Ap
+    when its method is ``gmg``, smoothed by damped Jacobi)."""
     smooth_iters: int = 2
     cycles: int = 1
 
@@ -27,8 +27,14 @@ class VelocityConfig(MultigridConfig):
     methods:
       ``gmg`` — geometric multigrid V-cycles (needs a velocity hierarchy)
       ``lu``  — exact dense inverse (validation scale)
+
+    smoothers of the multigrid levels:
+      ``jacobi`` — damped Jacobi
+      ``minres`` — minimal residual over the Jacobi-preconditioned Krylov
+                   directions (nonsymmetric, convection-dominated levels)
     """
     method: str = "gmg"
+    smoother: str = "jacobi"
 
 
 @dataclasses.dataclass(frozen=True)

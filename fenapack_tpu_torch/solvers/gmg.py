@@ -1,9 +1,9 @@
 """Geometric multigrid for the PCD Ap subsolve and the velocity block.
 
-The port of ``fenapack_tpu/solvers/gmg.py`` on the main path: hierarchies
-built by uniform refinement with parent tracking, re-discretized coarse
-operators, damped-Jacobi smoothing and a dense explicit-inverse coarse
-solve.
+The port of ``fenapack_tpu/solvers/gmg.py``: hierarchies built by uniform
+refinement with parent tracking (curved boundaries snapped after every
+refinement), re-discretized coarse operators, damped-Jacobi or
+minimal-residual smoothing and a dense explicit-inverse coarse solve.
 
   * P1 prolongation interpolates each fine vertex from its two parents;
     restriction is its transpose.
@@ -16,6 +16,15 @@ solve.
     V-cycle follows the current nonlinear iterate.
   * Enclosed flow (no PCD Dirichlet rows) gets a pure-Neumann pressure
     hierarchy whose coarse solve is the dense inverse of ``Ap + 1/n``.
+  * A base mesh whose P2 velocity space exceeds ``DENSE_MAX`` while its P1
+    space does not gets one more level below it: the P1 space of the same
+    mesh (:class:`PCoarseTransfer`), with the scalar convection-diffusion
+    operator ``nu (Ap + Kp(w))`` plus P1 streamline diffusion and a dense
+    inverse.  A base mesh too large even for that is solved by a fixed
+    budget of minimal-residual sweeps; a pressure base level above the cap
+    by Chebyshev iterations.
+  * Unsteady schemes pass ``theta`` and ``inv_dt``: every level's operator
+    becomes ``theta A1 + inv_dt M`` (and ``theta R``).
 
 With ``block_size`` the transfers are stored as BSR matrices and applied by
 the BSR SpMV kernel; without it they are gathers and scatter-adds.
@@ -34,10 +43,10 @@ from ..fem.elements import p2_basis
 from ..fem.mesh import TriMesh
 from ..ops import subsolve
 from ..ops.sparse import ELL, BlockSparsityPattern
-from .config import MultigridConfig
+from .config import MultigridConfig, VelocityConfig
 
 # Largest coarse system inverted densely (the JAX package's default
-# FENAPACK_GMG_DENSE_MAX); larger bottom levels are not ported yet.
+# FENAPACK_GMG_DENSE_MAX).  Read at every build, so a test may lower it.
 DENSE_MAX = 8192
 
 
@@ -58,12 +67,19 @@ class MeshHierarchy:
         return self.meshes[-1]
 
 
-def build_hierarchy(coarse: TriMesh, levels: int) -> MeshHierarchy:
+def build_hierarchy(coarse: TriMesh, levels: int,
+                    snap: Optional[Callable] = None) -> MeshHierarchy:
     """Refine ``coarse`` ``levels`` times; the finest mesh is the problem
-    mesh."""
+    mesh.  ``snap(mesh)``, if given, is applied to every refined mesh in
+    place (``mesh.snap_to_circle`` for the cylinder: new boundary vertices
+    go back onto the true geometry).  The P1 transfer keeps the (1/2, 1/2)
+    parent stencil at snapped vertices; the P2 transfer takes its midpoint
+    weights from the snapped coordinates."""
     meshes, parents = [coarse], []
     for _ in range(levels):
         fine, par = meshmod.refine_uniform(meshes[-1])
+        if snap is not None:
+            snap(fine)
         meshes.append(fine)
         parents.append(par)
     return MeshHierarchy(meshes=meshes, parents=parents)
@@ -119,18 +135,52 @@ def _jacobi_smooth(matvec, dinv, omega, iters, b, x):
     return x
 
 
+def _minres_smooth(matvec, dinv, iters, b, x):
+    """Minimal-residual smoother: the Jacobi-preconditioned Krylov
+    directions ``z_i = (D^-1 A)^i D^-1 r`` and the combination of them that
+    minimizes ``|r - A Z y|``, from the (iters x iters) normal equations
+    with the ridge ``1e-7 trace(G) / iters + 1e-30`` (finite when the
+    directions degenerate).  Robust on convection-dominated, nonsymmetric
+    level operators, where damped Jacobi with a fixed omega amplifies
+    characteristic modes.  The small system is solved by
+    ``torch.linalg.solve_ex``, which leaves its ``info`` on the device:
+    the smoother makes no host synchronisation."""
+    r = b - matvec(x)
+    z = dinv * r
+    Zs, Ws = [], []
+    for _ in range(iters):
+        w = matvec(z)
+        Zs.append(z)
+        Ws.append(w)
+        z = dinv * w
+    W = torch.stack(Ws)                                  # (s, n)
+    Z = torch.stack(Zs)
+    G = W @ W.T
+    c = W @ r
+    lam = 1e-7 * torch.trace(G) / G.shape[0] + 1e-30
+    eye = torch.eye(G.shape[0], dtype=G.dtype, device=G.device)
+    y = torch.linalg.solve_ex(G + lam * eye, c)[0]
+    return x + Z.T @ y
+
+
 def make_vcycle(matvecs: Sequence[Callable], dinvs: Sequence[torch.Tensor],
                 transfers: Sequence, coarse_solve: Callable,
                 masks: Sequence[Optional[torch.Tensor]],
                 smooth_iters: int = 2, omega: float = 0.67,
-                cycles: int = 1) -> Callable:
-    """Fixed-shape damped-Jacobi V-cycle ``solve(b) -> x``.  ``matvecs``,
-    ``dinvs`` and ``masks`` are per level, coarse to fine; ``transfers``
-    connect consecutive levels; ``masks`` chop the Dirichlet rows of
-    restricted residuals (1.0 = pinned)."""
+                cycles: int = 1, smoother: str = "jacobi") -> Callable:
+    """Fixed-shape V-cycle ``solve(b) -> x``.  ``matvecs``, ``dinvs`` and
+    ``masks`` are per level, coarse to fine; ``transfers`` connect
+    consecutive levels; ``masks`` chop the Dirichlet rows of restricted
+    residuals (1.0 = pinned).  ``smoother``: "jacobi" (damped, ``omega``)
+    or "minres" (:func:`_minres_smooth`)."""
+    if smoother not in ("jacobi", "minres"):
+        raise ValueError(f"unknown smoother {smoother!r}")
     L = len(matvecs)
 
     def smooth(lvl, b, x):
+        if smoother == "minres":
+            return _minres_smooth(matvecs[lvl], dinvs[lvl], smooth_iters,
+                                  b, x)
         return _jacobi_smooth(matvecs[lvl], dinvs[lvl], omega, smooth_iters,
                               b, x)
 
@@ -230,10 +280,14 @@ def make_gmg_solver(hierarchy: PressureHierarchy, cfg: MultigridConfig,
 
     lev0 = hierarchy.levels[0]
     if lev0.Ap.shape[0] > DENSE_MAX:
-        raise NotImplementedError(
-            f"pressure GMG needs a coarse level of at most {DENSE_MAX} dofs "
-            "(dense coarse solve)")
-    if lev0.mask is None:
+        # too large for an explicit inverse: the coarse operator is SPD, so
+        # Chebyshev with measured Jacobi-scaled bounds solves it
+        lmin, lmax = subsolve.power_bounds(matvecs[0], dinvs[0],
+                                           lev0.Ap.shape[0])
+        coarse = subsolve.chebyshev_solver(
+            matvecs[0], dinvs[0], lmin, lmax,
+            iters=max(16, 4 * cfg.smooth_iters))
+    elif lev0.mask is None:
         # enclosed flow: regularize the singular coarse Neumann operator
         A = lev0.asm.pat_p1.to_dense(lev0.Ap.vals).to(dtype)
         coarse = subsolve.dense_lu_solver(A + 1.0 / A.shape[0])
@@ -352,8 +406,38 @@ class VelocityHierarchy:
                     block_size=block_size))
 
 
+class PCoarseTransfer:
+    """P1 <-> P2 embedding on one mesh (the p-coarse bottom level).
+    ``prolong`` interpolates a P1 function into the P2 space of the same
+    mesh (vertex dofs copy, edge-midpoint dofs average their edge's
+    endpoints); ``restrict`` is its transpose.  For a base mesh whose P2
+    space is over ``DENSE_MAX`` (the DFG cylinder: ~18.6k velocity dofs at
+    level 0) the P1 space is 4x smaller and brings back an exact bottom
+    solve."""
+
+    def __init__(self, W, *, device):
+        mesh = W.mesh
+        nv = mesh.num_vertices
+        self.n_coarse, self.n_fine = W.n1, W.n2
+        v = np.arange(nv, dtype=np.int64)
+        # one 0.5 weight per index slot: vertex rows hit their own P1 dof
+        # twice, edge rows their two endpoints
+        IA = np.concatenate([v, mesh.edges[:, 0].astype(np.int64)])
+        IB = np.concatenate([v, mesh.edges[:, 1].astype(np.int64)])
+        self._IA = torch.as_tensor(IA, device=device)
+        self._IB = torch.as_tensor(IB, device=device)
+
+    def prolong(self, xc: torch.Tensor) -> torch.Tensor:
+        return 0.5 * (xc[self._IA] + xc[self._IB])
+
+    def restrict(self, rf: torch.Tensor) -> torch.Tensor:
+        rw = 0.5 * rf
+        z = torch.zeros(self.n_coarse, dtype=rf.dtype, device=rf.device)
+        return z.index_add_(0, self._IA, rw).index_add_(0, self._IB, rw)
+
+
 class _VectorTransfer:
-    """Lift a scalar P2 transfer to the stacked [u_x; u_y] layout."""
+    """Lift a scalar transfer to the stacked [u_x; u_y] layout."""
 
     def __init__(self, t: P2Transfer, n2c: int, n2f: int, d: int = 2):
         self.t, self.n2c, self.n2f, self.d = t, n2c, n2f, d
@@ -365,6 +449,22 @@ class _VectorTransfer:
     def restrict(self, rf):
         return torch.cat([self.t.restrict(rf[a * self.n2f:(a + 1) * self.n2f])
                           for a in range(self.d)])
+
+
+def _velocity_gmg_plan(vh: VelocityHierarchy, d: int):
+    """``(pcoarse, dense)``: the bottom-level strategy, shared by the
+    assembly half and the closure half of the velocity V-cycle.  Neither:
+    minimal-residual sweeps on the base level."""
+    asm0 = vh.asms[0]
+    pcoarse = d * asm0.n2 > DENSE_MAX >= d * asm0.n1
+    dense = (not pcoarse) and d * asm0.n2 <= DENSE_MAX
+    return pcoarse, dense
+
+
+def _pcoarse_mask(vh: VelocityHierarchy, d: int) -> torch.Tensor:
+    """Stacked P1 Dirichlet mask of the p-coarse bottom level: the base
+    level's P2 mask at the vertices."""
+    return torch.cat([vh.masks[0][:vh.asms[0].n1]] * d)
 
 
 def _velocity_level_masks(vh: VelocityHierarchy, bc_mask_u_fine, d: int):
@@ -388,13 +488,19 @@ def dense_velocity_block(pattern, A1vals: torch.Tensor,
 
 def velocity_gmg_values(vh: VelocityHierarchy, wind_fine: torch.Tensor,
                         bc_mask_u_fine: torch.Tensor, dtype,
-                        newton: bool = False, fine_values=None):
+                        newton: bool = False, fine_values=None,
+                        theta: float = 1.0, inv_dt: float = 0.0):
     """Assembly half of the velocity V-cycle: the operator values ``(A1,
     R)`` of every level (``R`` the Newton reaction blocks, None for
-    Picard; the fine level is ``fine_values`` when given) and the dense
-    inverse of the masked coarse operator."""
+    Picard; the fine level is ``fine_values`` when given), the P1 values of
+    the p-coarse bottom level and the dense inverse of the masked bottom
+    operator (None where the bottom is solved by sweeps).  ``theta`` and
+    ``inv_dt`` turn every level into the unsteady schemes' effective
+    operator ``theta A1 + inv_dt M2`` with ``theta R``; ``fine_values``
+    must then hold that combination already."""
     L = len(vh.asms)
     d = vh.asms[-1].dim
+    unsteady = theta != 1.0 or inv_dt != 0.0
     winds = [None] * L
     winds[L - 1] = wind_fine
     for l in range(L - 2, -1, -1):
@@ -403,8 +509,15 @@ def velocity_gmg_values(vh: VelocityHierarchy, wind_fine: torch.Tensor,
             winds[l + 1][a * n2f:(a + 1) * n2f]) for a in range(d)])
 
     def level_values(asm, wl):
-        R = asm.newton_reaction_values(wl).to(dtype) if newton else None
-        return asm.picard_matrix_values(wl).to(dtype), R
+        A1 = asm.picard_matrix_values(wl).to(dtype)
+        if unsteady:
+            A1 = theta * A1 + inv_dt * asm.mass2(hi=False).vals.to(dtype)
+        R = None
+        if newton:
+            R = asm.newton_reaction_values(wl).to(dtype)
+            if theta != 1.0:
+                R = theta * R
+        return A1, R
 
     levels = [level_values(asm, winds[l])
               for l, asm in enumerate(vh.asms[:-1])]
@@ -415,18 +528,36 @@ def velocity_gmg_values(vh: VelocityHierarchy, wind_fine: torch.Tensor,
         levels.append(level_values(vh.asms[-1], winds[-1]))
 
     asm0 = vh.asms[0]
-    if d * asm0.n2 > DENSE_MAX:
-        raise NotImplementedError(
-            f"velocity GMG needs a coarse level of at most {DENSE_MAX} dofs")
-    A = dense_velocity_block(asm0.pat_p2, *levels[0], d)
-    mask0 = _velocity_level_masks(vh, bc_mask_u_fine, d)[0]
-    free0 = 1.0 - mask0
-    A = free0[:, None] * A * free0[None, :] + torch.diag(mask0)
-    return {"levels": levels, "coarse_inv": torch.linalg.inv(A)}
+    pcoarse, dense = _velocity_gmg_plan(vh, d)
+    p1_vals = coarse_inv = None
+    if pcoarse:
+        # the p-coarse bottom level (see PCoarseTransfer): nu (Ap + Kp(w))
+        # per component, Picard form; the Newton reaction is left to the
+        # smoothed P2 levels (an inexactness of the preconditioner only)
+        w0 = winds[0].to(dtype)
+        p1_vals = vh.nu * (asm0.const.Ap.vals.to(dtype)
+                           + asm0.kp_values(w0).to(dtype))
+        if unsteady:
+            p1_vals = (theta * p1_vals
+                       + inv_dt * (vh.nu * asm0.const.Mp.vals.to(dtype)))
+        # streamline diffusion after the theta/inv_dt combination, as on
+        # the P2 levels: a theta-scaled stabilization would weaken the
+        # base level relative to the rest of the hierarchy
+        p1_vals = p1_vals + asm0.supg_p1_values(w0).to(dtype)
+        A = torch.block_diag(*([asm0.pat_p1.to_dense(p1_vals)] * d))
+        mask0 = _pcoarse_mask(vh, d)
+    elif dense:
+        A = dense_velocity_block(asm0.pat_p2, *levels[0], d)
+        mask0 = _velocity_level_masks(vh, bc_mask_u_fine, d)[0]
+    if pcoarse or dense:
+        free0 = 1.0 - mask0
+        A = free0[:, None] * A * free0[None, :] + torch.diag(mask0)
+        coarse_inv = torch.linalg.inv(A)
+    return {"levels": levels, "p1_vals": p1_vals, "coarse_inv": coarse_inv}
 
 
 def make_velocity_gmg_from_values(vh: VelocityHierarchy,
-                                  cfg: MultigridConfig, vals,
+                                  cfg: VelocityConfig, vals,
                                   bc_mask_u_fine: torch.Tensor,
                                   omega: float = 0.6) -> Callable:
     """Closure half of the velocity V-cycle, from
@@ -434,7 +565,8 @@ def make_velocity_gmg_from_values(vh: VelocityHierarchy,
     one block product over the level's shared pattern (A1 on every
     component plus the Newton reaction blocks); in the BSR layout each
     component is one single-RHS product with the level's scalar operator,
-    plus one per Newton reaction block."""
+    plus one per Newton reaction block.  The smoother is
+    ``cfg.smoother``."""
     d = vh.asms[-1].dim
     level_masks = _velocity_level_masks(vh, bc_mask_u_fine, d)
     matvecs, dinvs, vtransfers = [], [], []
@@ -473,21 +605,49 @@ def make_velocity_gmg_from_values(vh: VelocityHierarchy,
         if l > 0:
             vtransfers.append(_VectorTransfer(vh.transfers[l - 1],
                                               vh.asms[l - 1].n2, n2, d=d))
-    Ainv = vals["coarse_inv"]
-    return make_vcycle(matvecs, dinvs, vtransfers, lambda b: Ainv @ b,
+
+    asm0 = vh.asms[0]
+    pcoarse, dense = _velocity_gmg_plan(vh, d)
+    if pcoarse:
+        # one more level below the base mesh: its P1 space.  The V-cycle
+        # solves this level by the dense inverse and never applies its
+        # matvec or diagonal, so the level's entries are placeholders
+        matvecs.insert(0, None)
+        dinvs.insert(0, None)
+        level_masks.insert(0, _pcoarse_mask(vh, d))
+        vtransfers.insert(0, _VectorTransfer(
+            PCoarseTransfer(asm0.W, device=asm0.device), asm0.n1, asm0.n2,
+            d=d))
+    if pcoarse or dense:
+        Ainv = vals["coarse_inv"]
+        coarse_solve = lambda b: Ainv @ b
+    else:
+        # a fixed budget of minimal-residual sweeps (FGMRES is flexible:
+        # an inexact bottom solve only shifts the iteration counts)
+        mv0, dinv0 = matvecs[0], dinvs[0]
+        sweeps = max(8, 2 * cfg.smooth_iters)
+
+        def coarse_solve(b):
+            x = _minres_smooth(mv0, dinv0, sweeps, b, torch.zeros_like(b))
+            return _minres_smooth(mv0, dinv0, sweeps, b, x)
+    return make_vcycle(matvecs, dinvs, vtransfers, coarse_solve,
                        level_masks, smooth_iters=cfg.smooth_iters,
-                       omega=omega, cycles=cfg.cycles)
+                       omega=omega, cycles=cfg.cycles,
+                       smoother=cfg.smoother)
 
 
-def make_velocity_gmg_from_wind(vh: VelocityHierarchy, cfg: MultigridConfig,
+def make_velocity_gmg_from_wind(vh: VelocityHierarchy, cfg: VelocityConfig,
                                 wind_fine: torch.Tensor,
                                 bc_mask_u_fine: torch.Tensor, dtype,
                                 omega: float = 0.6, newton: bool = False,
-                                fine_values=None) -> Callable:
+                                fine_values=None, theta: float = 1.0,
+                                inv_dt: float = 0.0) -> Callable:
     """V-cycle preconditioner for the velocity block, re-discretizing the
     Picard (``newton``: plus reaction) operator on every level from the
-    injected wind.  ``fine_values`` is the fine level's ``(A1, R)``."""
+    injected wind.  ``fine_values`` is the fine level's ``(A1, R)``;
+    ``theta``/``inv_dt``: see :func:`velocity_gmg_values`."""
     vals = velocity_gmg_values(vh, wind_fine, bc_mask_u_fine, dtype,
-                               newton=newton, fine_values=fine_values)
+                               newton=newton, fine_values=fine_values,
+                               theta=theta, inv_dt=inv_dt)
     return make_velocity_gmg_from_values(vh, cfg, vals, bc_mask_u_fine,
                                          omega=omega)

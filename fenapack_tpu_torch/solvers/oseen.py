@@ -4,7 +4,10 @@ The port of ``fenapack_tpu/solvers/oseen.py::OseenSolver``: Picard or
 Newton linearization (the Newton operator adds the reaction blocks R_ab to
 the velocity block), PCD Dirichlet rows or enclosed flow (constant pressure
 nullspace), Ap by pressure multigrid, Chebyshev or dense LU, Mp by
-Chebyshev, the velocity block by multigrid or dense LU.  Two solves:
+Chebyshev, the velocity block by multigrid or dense LU.  ``theta`` and
+``inv_dt`` turn the operator into the unsteady schemes' effective one,
+``theta A1 + inv_dt M`` with ``theta R``, in the system matvec, the velocity
+multigrid and the PCD apply (``Mp/dt`` in Fp).  Two solves:
 :meth:`OseenSolver.solve`, FGMRES in the compute dtype to ``krylov.rtol``,
 and the single-round high-precision solve of :meth:`make_ir_solve` (the JAX
 package's ``krylov.hi_krylov``): f64 FGMRES with the f64 system matvec
@@ -43,6 +46,8 @@ class OseenSolver:
         without PCD Dirichlet rows the Ap solve projects out the constant
     pcd_marker : facet marker holding the PCD Dirichlet dofs, None for
         none (the caller decides: ``models`` through ``pcd_marker_for``)
+    theta, inv_dt : the time scheme's weights (steady: 1 and 0); the
+        velocity block is ``theta (A1 [+ R]) + inv_dt M2``
 
     The compute dtype of the configuration must be the storage dtype of
     ``asm.const``.
@@ -56,7 +61,8 @@ class OseenSolver:
                  config: SolverConfig = SolverConfig(), *,
                  pcd_marker: Optional[int],
                  linearization: str = "picard", enclosed: bool = False,
-                 ap_hierarchy=None, velocity_hierarchy=None):
+                 ap_hierarchy=None, velocity_hierarchy=None,
+                 theta: float = 1.0, inv_dt: float = 0.0):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         if linearization not in ("picard", "newton"):
@@ -64,6 +70,7 @@ class OseenSolver:
         self.asm = asm
         self.config = config
         self.linearization = linearization
+        self.theta, self.inv_dt = float(theta), float(inv_dt)
         self.dtype = dt = _DTYPES[config.dtype]
         if asm.const.Ap.vals.dtype != dt:
             raise ValueError(
@@ -154,19 +161,26 @@ class OseenSolver:
         """The PCD apply ``pcd(kp, r_p)`` with fresh subsolve closures."""
         return make_pcd_apply(self.config.pcd.variant, self._ap_factory(),
                               self._mp_factory(), self.pcd_mask,
-                              nullspace=self._nullspace)
+                              nullspace=self._nullspace, theta=self.theta,
+                              inv_dt=self.inv_dt)
 
     # -------------------------------------------------------------- #
     def _operator_values_raw(self, wind: torch.Tensor, hi: bool = True):
         """Operator values ``(A1, R)`` in the wind's precision class: A1 the
-        Picard operator, R the (d, d, ...) Newton reaction blocks or None
+        Picard operator (unsteady: ``theta A1 + inv_dt M2``), R the
+        (d, d, ...) Newton reaction blocks (unsteady: times theta) or None
         for Picard.  The high-precision operator runs its per-step integrals
         in f32 when ``krylov.hi_ops_f32`` (as the JAX package does)."""
         c32 = bool(hi) and self.config.krylov.hi_ops_f32
         A1 = self.asm.picard_matrix_values(wind, hi=hi, compute32=c32)
+        if self.theta != 1.0 or self.inv_dt != 0.0:
+            M2 = self.asm.mass2(hi=hi).vals
+            A1 = self.theta * A1 + self.inv_dt * M2.to(A1.dtype)
         R = None
         if self.linearization == "newton":
             R = self.asm.newton_reaction_values(wind, hi=hi, compute32=c32)
+            if self.theta != 1.0:
+                R = self.theta * R
         return A1, R
 
     def _operator_values(self, wind: torch.Tensor):
@@ -233,7 +247,8 @@ class OseenSolver:
                 self.velocity_hierarchy, cfg, wind.to(self.dtype),
                 self.bc_mask_u, self.dtype,
                 newton=self.linearization == "newton",
-                fine_values=(A1vals, R))
+                fine_values=(A1vals, R), theta=self.theta,
+                inv_dt=self.inv_dt)
         raise NotImplementedError(
             f"velocity method {cfg.method!r} is not ported")
 

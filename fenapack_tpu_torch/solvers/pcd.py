@@ -1,6 +1,6 @@
 """PCD (pressure-convection-diffusion) Schur complement approximations.
 
-The port of ``fenapack_tpu/solvers/pcd.py::make_pcd_apply`` (steady).  A
+The port of ``fenapack_tpu/solvers/pcd.py::make_pcd_apply``.  A
 PCD apply is a plain function ``z_p = pcd(kp, r_p)`` composed from subsolve
 closures; the wind-dependent Kp operator is an argument.  Signs as in the
 reference; the 1/nu scaling is folded into Mp and Kp:
@@ -18,6 +18,14 @@ rows is the symmetric masked operator ``free Ap free + I_bc``.  For enclosed
 flow without PCD Dirichlet rows (BRM2 on the lid-driven cavity) the constant
 nullspace is projected out around the Ap solve and from the result, the
 analogue of fenapack attaching a constant nullspace to the Ap solver.
+
+The unsteady schemes add ``Mp/dt`` into Fp: with ``Fp = Mp/dt + theta (nu Ap
++ Kp)`` and the 1/nu-scaled Mp and Kp,
+
+  BRM1:  y <- -(theta Mp^{-1} (x + Kp w1) + inv_dt w1)
+  BRM2:  w2 <- chop(theta Kp w1 + inv_dt x),  y <- -(theta w1 + Ap_bc^{-1} w2)
+
+which reduce to the steady applies at ``theta = 1``, ``inv_dt = 0``.
 """
 from __future__ import annotations
 
@@ -28,11 +36,14 @@ import torch
 
 def make_pcd_apply(variant: str, ap_solve: Callable, mp_solve: Callable,
                    bc_mask: Optional[torch.Tensor],
-                   nullspace: bool = False) -> Callable:
+                   nullspace: bool = False, theta: float = 1.0,
+                   inv_dt: float = 0.0) -> Callable:
     """Build ``pcd(kp, r_p) -> z_p``.  ``ap_solve``/``mp_solve`` approximate
     Ap^{-1} (BC masking built in) and Mp^{-1}; ``bc_mask`` is the PCD-BC dof
     mask (1.0 at Dirichlet dofs) or None; ``nullspace`` projects the
-    constant mode out around the Ap solve and from the result."""
+    constant mode out around the Ap solve and from the result; ``theta``
+    and ``inv_dt`` select the unsteady applies."""
+    steady = theta == 1.0 and inv_dt == 0.0
     free = None if bc_mask is None else 1.0 - bc_mask
 
     def chop(x):
@@ -47,11 +58,16 @@ def make_pcd_apply(variant: str, ap_solve: Callable, mp_solve: Callable,
     if variant == "BRM1":
         def apply(kp, x: torch.Tensor) -> torch.Tensor:
             w1 = ap_inv(chop(x))
-            return project(-mp_solve(x + kp.mv(w1)))
+            if steady:
+                return project(-mp_solve(x + kp.mv(w1)))
+            return project(-(theta * mp_solve(x + kp.mv(w1)) + inv_dt * w1))
     elif variant == "BRM2":
         def apply(kp, x: torch.Tensor) -> torch.Tensor:
             w1 = mp_solve(x)
-            return project(-(w1 + ap_inv(chop(kp.mv(w1)))))
+            if steady:
+                return project(-(w1 + ap_inv(chop(kp.mv(w1)))))
+            w2 = chop(theta * kp.mv(w1) + inv_dt * x)
+            return project(-(theta * w1 + ap_inv(w2)))
     else:
         raise ValueError(f"unknown PCD variant {variant!r}")
     return apply

@@ -78,8 +78,8 @@ def test_model_entry_points_default_to_the_card():
     p = LidDrivenCavity(level=0, device="cpu")
     assert p.enclosed() and p.pcd_marker_for("BRM2") is None
     assert p.pcd_marker_for("BRM1") == tmesh.INFLOW
-    with pytest.raises(NotImplementedError):
-        p.solver("BRM2", unsteady=0.1)
+    from fenapack_tpu_torch.solvers.unsteady import UnsteadySolver
+    assert isinstance(p.solver("BRM2", unsteady=0.1), UnsteadySolver)
     with pytest.raises(NotImplementedError):
         LidDrivenCavity(dim=3, device="cpu").mesh()
 

@@ -164,7 +164,10 @@ def test_native_unique_and_searchsorted_match_numpy():
 
 def test_import_does_not_load_jax():
     code = ("import sys, fenapack_tpu_torch, fenapack_tpu_torch.bench, "
-            "fenapack_tpu_torch.interop\n"
+            "fenapack_tpu_torch.interop, fenapack_tpu_torch.cylinder, "
+            "fenapack_tpu_torch.solvers.unsteady, "
+            "fenapack_tpu_torch.utils.functionals, "
+            "fenapack_tpu_torch.utils.io\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('fenapack_tpu.') "
             "or m == 'fenapack_tpu')\n"
