@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths on the card (the step benchmark, the
-lid-driven cavity, the DFG cylinder), in phases that each print one or more
-lines:
+Drives the port's four paths on the card (the step benchmark, the
+lid-driven cavity, the DFG cylinder, the SUPG-stabilized step at high
+Reynolds number), in phases that each print one or more lines:
 
   1. device  - require CUDA; print ``nvidia-smi`` name and power limit.
   2. build   - compile every kernel library from csrc/ (one nvcc per source,
@@ -71,6 +71,27 @@ lines:
                obstacle channel, and on the level-0 cylinder the first two
                Newton steps of 2D-1 and 3 BDF2 steps of 2D-2: per-step counts
                within 1, states within 1e-6.
+ 13. highre-kernels - BASELINE config 5 at level 2 (25,987 dofs, Re 2000):
+               the wind after the first damped Picard step, the block
+               product without R on the SUPG-stabilized A1 of every velocity
+               level (with and without y0) and the single product on D, B^T
+               and Kp, through K3 against the plain version (f64, 1e-12);
+               the times of the level-2 block product beside its bound.
+ 14. highre  - ``highre.build(2, nu)`` for nu = 1e-3 (Re 2000, Jacobi
+               smoother, FGMRES to 1e-8) and 4e-4 (Re 5000, minres, 1e-6):
+               two damped (0.7) Picard steps, then one Oseen solve at that
+               wind; asserts every solve under the cap of 1000 at a true
+               relative residual within its tolerance, |F| after two steps
+               below |F_0|, K3 single and block launches > 0 and no BSR
+               launch.
+ 15. highre-recycle - GCRO-DR against none: 4 damped Picard steps at Re
+               2000, level 2, with spaces of 0 and 16 (|F| histories equal
+               to 1e-6, fewer iterations in steps 2-4), and 10 BDF2 steps of
+               the level-1 cylinder 2D-2 with spaces of 0 and 8 (states
+               within 1e-6, fewer iterations in steps 2-10).
+ 16. highre-reference - level 1, card against CPU: 3 damped Picard steps at
+               Re 2000 with and without recycling; per-step counts within 1,
+               states within 1e-6.
 
 Then one JSON line with the kernels' records, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit, no
@@ -105,6 +126,15 @@ CYL_JAX_ITERS = [49, 50, 53, 50, 49]
 # Schafer & Turek (1996), DFG 2D-1; c_L: the level-2 discretisation value
 # (the published interval [0.0104, 0.0110] is reached at level 3)
 CD_REF, DP_REF, CL_L2 = (5.5700, 5.5900), (0.1172, 0.1176), (0.0101, 0.0005)
+HR_LEVEL = 2
+# (nu, velocity smoother, linear tolerance): Re 2000 and Re 5000 (the JAX
+# package's test solves Re 5000 to 1e-6; no count at 1e-8 is known)
+HR_RUNS = ((1e-3, "jacobi", 1e-8), (4e-4, "minres", 1e-6))
+HR_RECYCLE = 16
+# the cylinder's BDF2 operator is mass-dominated (~28 iterations a step): a
+# space of 16 costs iterations there (level 1 on the CPU, both packages'
+# algorithm: 255 -> 266 in steps 2-10), 8 saves a few (249)
+CYL_RECYCLE = 8
 PTXAS = re.compile(r"Compiling entry function '(\w+)'|(\d+) bytes spill "
                    r"stores, (\d+) bytes spill loads|Used (\d+) registers")
 
@@ -165,8 +195,9 @@ def main():
     print(f"[device] {torch.cuda.get_device_name(0)}; torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
-    from fenapack_tpu_torch import (bench, cavity, cavity_mesh, cylinder,
-                                    cylinder_channel_mesh, measure,
+    from fenapack_tpu_torch import (backward_step_mesh, bench, cavity,
+                                    cavity_mesh, cylinder,
+                                    cylinder_channel_mesh, highre, measure,
                                     snap_to_circle)
     from fenapack_tpu_torch.models import ObstacleChannel2D
     from fenapack_tpu_torch.ops import bsr_spmv, ell_spmv, kernels
@@ -760,6 +791,195 @@ def main():
         _require(diff <= 1e-6, f"{what}: states differ by {diff}")
     done("cylinder-reference", t0)
 
+    def rel_diff(a, b):
+        return float(torch.linalg.norm(a.cpu() - b.cpu())
+                     / torch.linalg.norm(b.cpu()))
+
+    # ---- 13. K3 against the plain version at the config-5 shapes -------- #
+    t0 = time.perf_counter()
+    hhier = gmg.build_hierarchy(backward_step_mesh(0), HR_LEVEL)
+    hnl = highre.build(HR_LEVEL, highre.NU, device=dev, hier=hhier)
+    r = hnl.solve_fused(rtol=highre.RTOL, rtol_lin=highre.RTOL_LIN,
+                        max_steps=1, damping=highre.DAMPING)
+    wind = r.w[:hnl.n_u]
+    hlevels = highre.velocity_levels(hnl, wind)
+    torch.cuda.synchronize()
+    print(f"[highre-kernels] level {HR_LEVEL}, Re {2 / highre.NU:g}: "
+          f"{hnl.n} dofs, velocity levels {[p.n_rows for p, _ in hlevels]}; "
+          f"wind after one damped Picard step ({r.linear_iters} iterations); "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    hrec = {}
+    ops = [(f"D{a}", hnl.asm.pat_div, hnl.asm.const.D[a].vals)
+           for a in range(2)]
+    ops += [(f"Bt{a}", hnl.asm.pat_divT, hnl.asm.const.DT[a].vals)
+            for a in range(2)]
+    ops.append(("Kp", hnl.asm.pat_p1, hnl.asm.kp_values(wind, surface=True)))
+    for name, pat, vals in ops:
+        x = torch.as_tensor(rng.standard_normal(pat.n_cols),
+                            dtype=torch.float64, device=dev)
+        abs_err, rel = rel_err(
+            ell_spmv.ell_spmv(pat.cols, vals, x, pat.n_cols),
+            ell_spmv.ell_spmv_plain(pat.cols, vals, x, pat.n_cols))
+        erec["f64"]["max_abs_err"] = max(erec["f64"]["max_abs_err"], abs_err)
+        print(f"[highre-kernels] {name:4s} f64 ELL {tuple(vals.shape)}: max "
+              f"rel err {rel} (tol {F64_TOL})", flush=True)
+        _require(rel <= F64_TOL, f"config 5 {name}: kernel disagrees with "
+                 f"plain ({rel} > {F64_TOL})")
+    top = len(hlevels) - 1
+    for l, (pat, A1) in enumerate(hlevels):
+        x = torch.as_tensor(rng.standard_normal((2, pat.n_cols)),
+                            dtype=torch.float64, device=dev)
+        y0 = torch.as_tensor(rng.standard_normal((2, pat.n_rows)),
+                             dtype=torch.float64, device=dev)
+        rels = []
+        for yy in (None, y0):
+            abs_err, rel = rel_err(
+                ell_spmv.ell_block_spmv(pat.cols, A1, None, x, pat.n_cols,
+                                        yy),
+                ell_spmv.ell_block_spmv_plain(pat.cols, A1, None, x,
+                                              pat.n_cols, yy))
+            rels.append(rel)
+            brec["f64"]["max_abs_err"] = max(brec["f64"]["max_abs_err"],
+                                             abs_err)
+        line = (f"[highre-kernels] block product velocity level {l} f64 ELL "
+                f"{tuple(A1.shape)} (SUPG-stabilized A1, without R): max rel "
+                f"err {rels[0]}, with y0 {rels[1]} (tol {F64_TOL})")
+        if l == top:
+            kernel = lambda: ell_spmv.ell_block_spmv(pat.cols, A1, None, x,
+                                                     pat.n_cols)
+            plain = lambda: ell_spmv.ell_block_spmv_plain(pat.cols, A1, None,
+                                                          x, pat.n_cols)
+            libs = [measure.library(measure.csr_library(pat, A1), x[b])
+                    for b in (0, 1)]
+            calls = [c for c, _ in libs]
+            lib = ((lambda: [c() for c in calls]) if all(calls) else None,
+                   "; ".join(w for _, w in libs if w))
+            nbytes = measure.ell_block_bytes(A1, None, 2, pat.n_cols)
+            hrec, why = yardsticks(kernel, plain, lib, nbytes,
+                                   measure.ell_block_flops(A1, None, 2),
+                                   torch.float64)
+            line += (f"; {json.dumps(hrec)}; two cuSPARSE CSR products "
+                     f"{why or 'taken'}; {nbytes} B")
+        print(line, flush=True)
+        _require(max(rels) <= F64_TOL, f"config 5 block product level {l}: "
+                 f"kernel disagrees with plain ({rels} > {F64_TOL})")
+    del hlevels
+    done("highre-kernels", t0)
+
+    # ---- 14. config 5 at level 2: Re 2000 and Re 5000 on the card ------- #
+    t0 = time.perf_counter()
+    bsr_spmv.reset_launches()
+    ell_spmv.reset_launches()
+    cap = highre.CFG["krylov.maxiter"]
+    for nu, smoother, rtol_lin in HR_RUNS:
+        ts = time.perf_counter()
+        nl = (hnl if nu == highre.NU and smoother == "jacobi" else
+              highre.build(HR_LEVEL, nu, device=dev, smoother=smoother,
+                           hier=hhier))
+        r = nl.solve_fused(rtol=highre.RTOL, rtol_lin=rtol_lin, max_steps=2,
+                           damping=highre.DAMPING)
+        F, rn = nl.residual_of(r.w)
+        tos = time.perf_counter()
+        x, it, rn_lin, lin, _ = nl.oseen.make_ir_solve(rtol_lin)(
+            r.w[:nl.n_u], -F)
+        torch.cuda.synchronize()
+        oseen_s = time.perf_counter() - tos
+        iters = r.linear_iters + [it]
+        lin_rel = r.lin_rel + [float(rn_lin) / lin.bnorm]
+        print(f"[highre] level {HR_LEVEL}, Re {2 / nu:g} ({smoother}, rtol "
+              f"{rtol_lin:g}): two damped Picard steps {r.linear_iters} "
+              f"({r.wall_time:.3f} s), |F| {r.nonlinear_res} -> "
+              f"{float(rn)}; Oseen solve at that wind {it} iterations "
+              f"({oseen_s:.3f} s, converged {lin.converged}); true rel res "
+              f"{lin_rel}; {(r.wall_time + oseen_s) / sum(iters) * 1e3:.2f} "
+              f"ms per FGMRES iteration; phase so far "
+              f"{time.perf_counter() - ts:.3f} s", flush=True)
+        _require(max(iters) < cap and lin.converged,
+                 f"Re {2 / nu:g}: a solve hit the cap of {cap}: {iters}")
+        _require(max(lin_rel) <= rtol_lin,
+                 f"Re {2 / nu:g}: true relative residuals {lin_rel}")
+        _require(float(rn) < r.nonlinear_res[0],
+                 f"Re {2 / nu:g}: |F| {float(rn)} after two steps, |F_0| "
+                 f"{r.nonlinear_res[0]}")
+        _require(bool(torch.isfinite(r.w).all()) and r.w.shape == (nl.n,),
+                 f"Re {2 / nu:g}: the state is not a finite vector")
+    torch.cuda.synchronize()
+    d14 = k3_counts()
+    print(f"[highre] K3 f64 launches: single {d14[0]}, block {d14[1]}; f32 "
+          f"{d14[2] + d14[3]}, BSR {d14[4]}", flush=True)
+    _require(d14[0] > 0 and d14[1] > 0 and d14[4] == 0,
+             f"config 5 launches (single, block, f32, f32 block, BSR) {d14}")
+    done("highre", t0)
+
+    # ---- 15. GCRO-DR recycling against none ----------------------------- #
+    t0 = time.perf_counter()
+    runs = {}
+    for rc in (0, HR_RECYCLE):
+        nl = highre.build(HR_LEVEL, highre.NU, device=dev, recycle=rc,
+                          hier=hhier)
+        r = nl.solve_fused(rtol=highre.RTOL, rtol_lin=highre.RTOL_LIN,
+                           max_steps=4, damping=highre.DAMPING)
+        runs[rc] = (r, float(nl.residual_of(r.w)[1]))
+        print(f"[highre-recycle] level {HR_LEVEL}, Re 2000, recycle {rc}: "
+              f"iters {r.linear_iters} (steps 2-4: {sum(r.linear_iters[1:])})"
+              f"; |F| {r.nonlinear_res + [runs[rc][1]]}; max true rel res "
+              f"{max(r.lin_rel)}; {r.wall_time:.3f} s", flush=True)
+    (a, fa), (b, fb) = runs[0], runs[HR_RECYCLE]
+    gap = max(abs(x - y) / y for x, y in zip(b.nonlinear_res + [fb],
+                                             a.nonlinear_res + [fa]))
+    _require(gap <= 1e-6, f"recycled |F| history differs by {gap}")
+    _require(sum(b.linear_iters[1:]) < sum(a.linear_iters[1:]),
+             f"recycling did not cut steps 2-4: {a.linear_iters} -> "
+             f"{b.linear_iters}")
+    _require(max(b.lin_rel) <= highre.RTOL_LIN,
+             f"recycled true relative residuals {b.lin_rel}")
+    cruns = {}
+    for rc in (0, CYL_RECYCLE):
+        us = cylinder.build(1, 100, device=dev, unsteady=True, recycle=rc)
+        cruns[rc] = us.solve_fused(10 * us.dt)
+        print(f"[highre-recycle] cylinder level 1, 10 BDF2 steps, recycle "
+              f"{rc}: iters {cruns[rc].linear_iters} (steps 2-10: "
+              f"{sum(cruns[rc].linear_iters[1:])}); "
+              f"{cruns[rc].wall_time:.3f} s", flush=True)
+    a, b = cruns[0], cruns[CYL_RECYCLE]
+    diff = rel_diff(b.w, a.w)
+    print(f"[highre-recycle] cylinder relative state difference {diff}",
+          flush=True)
+    _require(diff <= 1e-6, f"recycled cylinder states differ by {diff}")
+    _require(sum(b.linear_iters[1:]) < sum(a.linear_iters[1:]),
+             f"recycling did not cut BDF2 steps 2-10: {a.linear_iters} -> "
+             f"{b.linear_iters}")
+    _require(max(b.lin_rel) <= 1e-8,
+             f"recycled BDF2 true relative residuals {b.lin_rel}")
+    del hnl, runs, cruns
+    done("highre-recycle", t0)
+
+    # ---- 16. config 5 reference: level 1 on the card vs the CPU --------- #
+    t0 = time.perf_counter()
+    for rc in (0, HR_RECYCLE):
+        res = {}
+        for where in (dev, torch.device("cpu")):
+            r = highre.build(1, highre.NU, device=where, recycle=rc
+                             ).solve_fused(rtol=highre.RTOL,
+                                           rtol_lin=highre.RTOL_LIN,
+                                           max_steps=3,
+                                           damping=highre.DAMPING)
+            res[where.type] = r
+        g, c = res["cuda"], res["cpu"]
+        diff = rel_diff(g.w, c.w)
+        print(f"[highre-reference] level 1, Re 2000, 3 damped Picard steps, "
+              f"recycle {rc}: iters cuda {g.linear_iters} cpu "
+              f"{c.linear_iters}; relative state difference {diff}",
+              flush=True)
+        _require(len(g.linear_iters) == len(c.linear_iters)
+                 and all(abs(x - y) <= 1 for x, y in zip(g.linear_iters,
+                                                         c.linear_iters)),
+                 f"config 5 level 1 recycle {rc}: counts differ: cuda "
+                 f"{g.linear_iters}, cpu {c.linear_iters}")
+        _require(diff <= 1e-6, f"config 5 level 1 recycle {rc}: states "
+                 f"differ by {diff}")
+    done("highre-reference", t0)
+
     # ``launches``: counts of the paths' own runs, each read just after a
     # run that began with the counts at 0 (``paths`` splits them).  The ELL
     # paths are f64 throughout: each ELL record is its f64 instantiation with
@@ -768,6 +988,7 @@ def main():
     # at the cylinder's level-2 shapes are nested under ``cylinder``
     cyl_paths = (f"cylinder l{CYL_LEVEL} 2D-1",
                  f"cylinder l{CYL_LEVEL} 2D-2 {CYL_STEPS} steps")
+    hr_path = f"step l{HR_LEVEL} config 5, Re 2000 and 5000"
     kernels_line = [{"name": f"bsr_spmv_{k}", "route": "cuda",
                      "source": SOURCE, "replaces": REPLACES[k],
                      "launches": timed[k], "path": "step l2 timed solve",
@@ -775,24 +996,29 @@ def main():
     kernels_line.append({
         "name": "ell_spmv", "route": "cuda", "source": ELL_SOURCE,
         "replaces": ELL_REPLACES,
-        "launches": cavity_launches["ell_f64"] + d1[0] + d2[0],
+        "launches": cavity_launches["ell_f64"] + d1[0] + d2[0] + d14[0],
         "paths": {f"cavity l{cavity.LEVEL} continuation":
                   cavity_launches["ell_f64"],
-                  cyl_paths[0]: d1[0], cyl_paths[1]: d2[0]},
+                  cyl_paths[0]: d1[0], cyl_paths[1]: d2[0],
+                  hr_path: d14[0]},
         "dtype": "f64", **erec["f64"],
         "cylinder": crec["f64"]["single"],
-        "f32": {"launches": cavity_launches["ell_f32"] + d1[2] + d2[2],
+        "f32": {"launches": cavity_launches["ell_f32"] + d1[2] + d2[2]
+                + d14[2],
                 **erec["f32"], "cylinder": crec["f32"]["single"]}})
     kernels_line.append({
         "name": "ell_block_spmv", "route": "cuda", "source": ELL_SOURCE,
         "replaces": ELL_REPLACES,
-        "launches": cavity_launches["ell_block_f64"] + d1[1] + d2[1],
+        "launches": cavity_launches["ell_block_f64"] + d1[1] + d2[1]
+        + d14[1],
         "paths": {f"cavity l{cavity.LEVEL} continuation":
                   cavity_launches["ell_block_f64"],
-                  cyl_paths[0]: d1[1], cyl_paths[1]: d2[1]},
+                  cyl_paths[0]: d1[1], cyl_paths[1]: d2[1], hr_path: d14[1]},
         "dtype": "f64", **brec["f64"],
         "cylinder": {k: v for k, v in crec["f64"].items() if k != "single"},
-        "f32": {"launches": cavity_launches["ell_block_f32"] + d1[3] + d2[3],
+        "highre": hrec,
+        "f32": {"launches": cavity_launches["ell_block_f32"] + d1[3] + d2[3]
+                + d14[3],
                 **brec["f32"],
                 "cylinder": {k: v for k, v in crec["f32"].items()
                              if k != "single"}}})

@@ -5,9 +5,12 @@ and dofmap setup, static-sparsity Taylor-Hood assembly, ELL and block-sparse
 (BSR) operators applied by hand-written CUDA kernels, flexible GMRES around
 the upper Schur fieldsplit with PCD-BRM1/BRM2 (enclosed flow included),
 geometric multigrid and dense subsolves, Picard and Newton drivers (with
-Anderson mixing on the Picard full solve), theta-scheme and BDF2 time
-stepping, drag/lift functionals and the model entry points (``models``).  The JAX package ``fenapack_tpu`` is the reference; the
-layout of this package mirrors it module by module.
+Anderson mixing on the Picard full solve, damping on the others), GCRO-DR
+recycling across solves, SUPG streamline diffusion (system and
+preconditioner), theta-scheme and BDF2 time stepping, drag/lift
+functionals and the model entry points (``models``).  The JAX package
+``fenapack_tpu`` is the reference; the layout of this package mirrors it
+module by module.
 
 This package imports ``torch``, ``numpy`` and (for host setup) ``scipy``,
 never ``jax``.
@@ -25,7 +28,8 @@ from .ops.sparse import (ELL, BlockELL, SparsityPattern, BlockSparsityPattern,
 from .solvers.config import (SolverConfig, KrylovConfig, PCDConfig,
                              SubsolveConfig, MultigridConfig, VelocityConfig,
                              override, overrides)
-from .solvers.krylov import fgmres, FGMRESResult
+from .solvers.krylov import (fgmres, fgmres_dr, FGMRESResult, RecycleSpace,
+                             empty_recycle, refresh_recycle)
 from .solvers.pcd import make_pcd_apply
 from .solvers.fieldsplit import make_fieldsplit_upper
 from .solvers.oseen import OseenSolver
@@ -49,8 +53,10 @@ __all__ = [
     "ConstOperators", "ELL", "BlockELL", "SparsityPattern",
     "BlockSparsityPattern", "pattern_from_dofmaps",
     "SolverConfig", "KrylovConfig", "PCDConfig", "SubsolveConfig",
-    "MultigridConfig", "VelocityConfig", "override", "overrides", "fgmres",
-    "FGMRESResult", "make_pcd_apply", "make_fieldsplit_upper", "OseenSolver",
+    "MultigridConfig", "VelocityConfig", "override", "overrides",
+    "fgmres", "fgmres_dr", "FGMRESResult", "RecycleSpace", "empty_recycle",
+    "refresh_recycle", "make_pcd_apply", "make_fieldsplit_upper",
+    "OseenSolver",
     "NonlinearSolver", "NonlinearResult", "FullSolveResult",
     "UnsteadySolver", "UnsteadyResult", "gmg", "models",
     "boundary_reaction", "eval_p1", "p1_point_weights",

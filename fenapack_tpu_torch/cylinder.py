@@ -54,21 +54,23 @@ def default_dt(level: int) -> float:
 
 
 def build(level: int, re: int, *, device, unsteady: bool = False,
-          dt: float = None, hier=None):
+          dt: float = None, hier=None, recycle: int = 0):
     """The slice's solver through the model entry point at ``level`` and
     benchmark Reynolds number ``re`` (20 or 100): the Newton solver of
     2D-1, or with ``unsteady`` the BDF2 stepper of 2D-2 with time step
     ``dt``.  ``hier`` (the hierarchy of the same level) is reused when
-    given."""
+    given; ``recycle`` is the GCRO-DR space of ``solve_fused`` (0:
+    none)."""
     p = CylinderChannel2D(level=level, nu=NU, u_mean=UBAR[re],
                           device=str(device))
     asm = p.assembler(hier.fine) if hier is not None else None
+    cfg = {**CFG, "krylov.recycle": recycle}
     if unsteady:
         return p.solver("BRM2", linearization="picard", gmg_subsolves=True,
                         unsteady=default_dt(level) if dt is None else dt,
-                        scheme="bdf2", asm=asm, hier=hier, **CFG)
+                        scheme="bdf2", asm=asm, hier=hier, **cfg)
     return p.solver("BRM2", linearization="newton", gmg_subsolves=True,
-                    asm=asm, hier=hier, **CFG)
+                    asm=asm, hier=hier, **cfg)
 
 
 def coeff(re: int) -> float:

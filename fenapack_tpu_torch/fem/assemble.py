@@ -382,25 +382,43 @@ class NSAssembler:
         """Streamline-diffusion values for the scalar P1
         convection-diffusion operator ``nu Ap + nu Kp(u)``, the p-coarse
         bottom level of the velocity multigrid
-        (``solvers/gmg.py::PCoarseTransfer``).  The Elman-Silvester-Wathen
-        delta ``h / (2 |w|) (1 - 1 / Pe)`` where the cell Peclet number
-        ``Pe = |w| h / (2 nu)`` exceeds 1, on P1 gradients (constant per
-        cell): ``delta (w . grad q_l)(w . grad q_m)`` at every quadrature
-        point.  Without it the bottom level's exact inverse amplifies the
+        (``solvers/gmg.py::PCoarseTransfer``).  The delta of
+        :meth:`_supg_delta` on P1 gradients (constant per cell):
+        ``delta (w . grad q_l)(w . grad q_m)`` at every quadrature point.
+        Without it the bottom level's exact inverse amplifies the
         oscillatory Galerkin modes at Pe > 1."""
         uq = self.wind_at_quad(u)                          # (nc, nq, d)
         dt = uq.dtype
-        umag = torch.sqrt(torch.sum(uq * uq, dim=-1))      # (nc, nq)
-        h = self.h_cell.to(dt)[:, None]
-        pe = umag * h / (2.0 * self.nu)
-        delta = torch.where(
-            pe > 1.0,
-            h / torch.clamp(2.0 * umag, min=1e-30)
-            * (1.0 - 1.0 / torch.clamp(pe, min=1.0)),
-            torch.zeros_like(pe))
         v = torch.einsum("cqd,cmd->cqm", uq, self.g1.to(dt))
-        elem = torch.einsum("cq,cql,cqm->clm", self.wdet.to(dt) * delta, v, v)
+        elem = torch.einsum("cq,cql,cqm->clm",
+                            self.wdet.to(dt) * self._supg_delta(uq), v, v)
         return self.pat_p1.assemble_values(elem)
+
+    def _supg_delta(self, uq: torch.Tensor) -> torch.Tensor:
+        """The Elman-Silvester-Wathen streamline-diffusion parameter at the
+        quadrature points, (nc, nq): ``h / (2 |w|) (1 - 1 / Pe)`` where the
+        cell Peclet number ``Pe = |w| h / (2 nu)`` exceeds 1, else 0."""
+        umag = torch.clamp(torch.sqrt(torch.sum(uq * uq, dim=-1)), min=1e-30)
+        h = self.h_cell.to(uq.dtype)[:, None]
+        pe = umag * h / (2.0 * self.nu)
+        return torch.where(pe > 1.0, h / (2.0 * umag) * (1.0 - 1.0 / pe),
+                           torch.zeros_like(pe))
+
+    def supg_values(self, u: torch.Tensor, hi: bool = False) -> torch.Tensor:
+        """Streamline-diffusion (SUPG) values of the scalar P2 operator,
+        ``delta (w . grad phi_i)(w . grad phi_j)`` with the delta of
+        :meth:`_supg_delta`, on the P2 pattern of the ``hi`` set (Elman,
+        Silvester & Wathen, Finite Elements and Fast Iterative Solvers, 2nd
+        ed., sec. 8.3.2).  The preconditioner's velocity operator takes it
+        under ``jpc_supg``, the system under ``system_supg``."""
+        cdt = torch.promote_types(u.dtype, self.dtype)
+        uq = self.wind_at_quad(u.to(cdt))                  # (nc, nq, d)
+        # w . grad phi_i = (Jinv w) . grad_ref phi_i
+        s = torch.einsum("cqd,ckd->cqk", uq, self.Jinv.to(cdt))
+        wg = torch.einsum("cqk,qik->cqi", s, self.dphi2.to(cdt))
+        sw = self.wdet.to(cdt) * self._supg_delta(uq)
+        elem = torch.einsum("cqi,cqj->cij", wg * sw[..., None], wg)
+        return self._pats(hi)[0].assemble_values(elem)
 
     def picard_matrix_values(self, u: torch.Tensor, hi: bool = False,
                              compute32: bool = False) -> torch.Tensor:
@@ -410,15 +428,21 @@ class NSAssembler:
         return self.nu * L.vals.to(conv.dtype) + conv
 
     def residual(self, u: torch.Tensor, p: Optional[torch.Tensor],
-                 hi: bool = True, compute32: bool = False
+                 hi: bool = True, supg: bool = False,
+                 compute32: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Steady NS residual with zero body force and natural outflow:
         ``ru_a = A1(u) u_a + DT_a p``, ``rp = sum_a D_a u_a`` (BC masking
         by the caller).  ``p=None`` leaves the pressure gradient out: the
         convection-diffusion part alone, the theta-weighted piece of the
-        unsteady residuals.  ``hi`` selects the high-precision operators."""
-        A1 = self._pats(hi)[0].matrix(
-            self.picard_matrix_values(u, hi=hi, compute32=compute32))
+        unsteady residuals.  ``hi`` selects the high-precision operators.
+        ``supg`` adds the streamline diffusion of :meth:`supg_values` at the
+        state itself to A1 (the stabilized system of ``system_supg``, whose
+        Picard operator lags the same term)."""
+        A1vals = self.picard_matrix_values(u, hi=hi, compute32=compute32)
+        if supg:
+            A1vals = A1vals + self.supg_values(u, hi=hi).to(A1vals.dtype)
+        A1 = self._pats(hi)[0].matrix(A1vals)
         c = self.const_hi if hi else self.const
         comps = self.split_u(u)
         ru = torch.cat([A1.mv(comps[a]) for a in range(self.dim)])

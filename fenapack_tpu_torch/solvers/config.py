@@ -3,7 +3,7 @@
 The subset of ``fenapack_tpu/solvers/config.py`` (plain dataclasses) that
 the port reads: every field here changes what a solve does.  The JAX
 package's other options (lumped and Chebyshev velocity subsolves,
-mixed-precision IR rounds, recycling, split assembly, SUPG) come back with
+mixed-precision IR rounds, split assembly, ``hi_matvec``) come back with
 the code that ports them.
 """
 from __future__ import annotations
@@ -78,6 +78,11 @@ class KrylovConfig:
     # attainable nonlinear floor (~1e-7 relative with f32 integrals), so
     # keep False when converging past 1e-8.
     hi_res_f32: bool = False
+    # GCRO-DR recycle-space dimension (0 = off): the high-precision solve
+    # of OseenSolver.make_ir_solve deflates the slowest Krylov directions
+    # of the previous solve (previous Picard or time step: a nearby
+    # operator), re-bound to the new operator by refresh_recycle
+    recycle: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,6 +103,14 @@ class SolverConfig:
     pcd: PCDConfig = PCDConfig()
     velocity: VelocityConfig = VelocityConfig()
     dtype: str = "float64"               # the preconditioner's compute dtype
+    # add SUPG streamline diffusion to the preconditioner's velocity
+    # operator only (the reference demo's separate J_pc form); the system
+    # operator stays unstabilized
+    jpc_supg: bool = False
+    # SUPG-stabilize the system (residual and Picard operator), BASELINE
+    # config 5 (Re 2000-5000): the Galerkin system is oscillatory at cell
+    # Peclet >> 1.  Implies the stabilized preconditioner operators too.
+    system_supg: bool = False
 
 
 def override(cfg: Any, key: str, value: Any) -> Any:

@@ -24,7 +24,9 @@ minimal-residual smoothing and a dense explicit-inverse coarse solve.
     budget of minimal-residual sweeps; a pressure base level above the cap
     by Chebyshev iterations.
   * Unsteady schemes pass ``theta`` and ``inv_dt``: every level's operator
-    becomes ``theta A1 + inv_dt M`` (and ``theta R``).
+    becomes ``theta A1 + inv_dt M`` (and ``theta R``); ``supg`` adds the
+    P2 streamline diffusion to every level but the fine one after that
+    combination (the fine level is the caller's operator).
 
 With ``block_size`` the transfers are stored as BSR matrices and applied by
 the BSR SpMV kernel; without it they are gathers and scatter-adds.
@@ -489,7 +491,8 @@ def dense_velocity_block(pattern, A1vals: torch.Tensor,
 def velocity_gmg_values(vh: VelocityHierarchy, wind_fine: torch.Tensor,
                         bc_mask_u_fine: torch.Tensor, dtype,
                         newton: bool = False, fine_values=None,
-                        theta: float = 1.0, inv_dt: float = 0.0):
+                        theta: float = 1.0, inv_dt: float = 0.0,
+                        supg: bool = False):
     """Assembly half of the velocity V-cycle: the operator values ``(A1,
     R)`` of every level (``R`` the Newton reaction blocks, None for
     Picard; the fine level is ``fine_values`` when given), the P1 values of
@@ -497,7 +500,11 @@ def velocity_gmg_values(vh: VelocityHierarchy, wind_fine: torch.Tensor,
     operator (None where the bottom is solved by sweeps).  ``theta`` and
     ``inv_dt`` turn every level into the unsteady schemes' effective
     operator ``theta A1 + inv_dt M2`` with ``theta R``; ``fine_values``
-    must then hold that combination already."""
+    must then hold that combination already.  ``supg`` adds the streamline
+    diffusion to every level's A1 after that combination, unscaled; the
+    fine level takes the caller's values as they are (under
+    ``system_supg`` with theta != 1 the fine level carries theta SUPG and
+    the coarse levels SUPG, as in the JAX package)."""
     L = len(vh.asms)
     d = vh.asms[-1].dim
     unsteady = theta != 1.0 or inv_dt != 0.0
@@ -512,6 +519,8 @@ def velocity_gmg_values(vh: VelocityHierarchy, wind_fine: torch.Tensor,
         A1 = asm.picard_matrix_values(wl).to(dtype)
         if unsteady:
             A1 = theta * A1 + inv_dt * asm.mass2(hi=False).vals.to(dtype)
+        if supg:
+            A1 = A1 + asm.supg_values(wl).to(dtype)
         R = None
         if newton:
             R = asm.newton_reaction_values(wl).to(dtype)
@@ -641,13 +650,14 @@ def make_velocity_gmg_from_wind(vh: VelocityHierarchy, cfg: VelocityConfig,
                                 bc_mask_u_fine: torch.Tensor, dtype,
                                 omega: float = 0.6, newton: bool = False,
                                 fine_values=None, theta: float = 1.0,
-                                inv_dt: float = 0.0) -> Callable:
+                                inv_dt: float = 0.0,
+                                supg: bool = False) -> Callable:
     """V-cycle preconditioner for the velocity block, re-discretizing the
     Picard (``newton``: plus reaction) operator on every level from the
     injected wind.  ``fine_values`` is the fine level's ``(A1, R)``;
-    ``theta``/``inv_dt``: see :func:`velocity_gmg_values`."""
+    ``theta``/``inv_dt``/``supg``: see :func:`velocity_gmg_values`."""
     vals = velocity_gmg_values(vh, wind_fine, bc_mask_u_fine, dtype,
                                newton=newton, fine_values=fine_values,
-                               theta=theta, inv_dt=inv_dt)
+                               theta=theta, inv_dt=inv_dt, supg=supg)
     return make_velocity_gmg_from_values(vh, cfg, vals, bc_mask_u_fine,
                                          omega=omega)

@@ -1,5 +1,6 @@
-"""Flexible GMRES (right-preconditioned), the port of
-``fenapack_tpu/solvers/krylov.py::fgmres``.
+"""Flexible GMRES (right-preconditioned) and its deflated-recycling
+variant, the port of ``fenapack_tpu/solvers/krylov.py::fgmres`` and
+``fgmres_dr``.
 
 Flexible because the PCD preconditioner contains iterative subsolves.  No
 restarts: ``maxiter`` is the Krylov dimension.
@@ -18,10 +19,18 @@ restarts: ``maxiter`` is the Krylov dimension.
     estimate ``|g[k+1]|`` against ``rtol * ||b||``; ``converged`` reports
     that test only, so a breakdown stop or the ``maxiter`` cap never passes
     for convergence.
+  * GCRO-DR (:func:`fgmres_dr`, Parks et al. 2006): a recycle space of
+    ``k`` directions ``U`` with ``C = A U``, ``C C^T = I`` deflates the
+    Arnoldi process, which runs on ``(I - C C^T) A pc``.  The projections
+    ``C w`` ride the Hessenberg column's copy to the host, so recycling adds
+    no host synchronisation per iteration.  The next space is harvested
+    from the smallest singular directions of the small augmented
+    Hessenberg matrix (NumPy f64 on the host), and re-bound to the operator
+    by matvecs and a QR on the device (:func:`refresh_recycle`).
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -48,20 +57,89 @@ def _rotate(h: np.ndarray, cs: np.ndarray, sn: np.ndarray, k: int):
         h[i] = hi
 
 
+class RecycleSpace(NamedTuple):
+    """A GCRO-DR recycle space: ``k`` solution-space directions ``U``
+    (rows) with their operator images ``C = A U`` (rows, orthonormal).
+
+    ``valid`` is per direction (0.0 | 1.0), so a space fills up across
+    solves shorter than ``k`` iterations.  Invalid rows of ``U`` and ``C``
+    are exactly zero, so every consumer (the deflation projection, the
+    solution's reconstruction, the small augmented matrix) is right without
+    masking, and valid rows come first (the harvest sorts by score), so a
+    factorization sees trailing zero columns only."""
+    U: torch.Tensor             # (k, n)
+    C: torch.Tensor             # (k, n), C = A U, C C^T = diag(valid)
+    valid: torch.Tensor         # (k,) 0.0 | 1.0
+
+
+def empty_recycle(k: int, n: int, dtype, device) -> RecycleSpace:
+    z = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
+    return RecycleSpace(U=z(k, n), C=z(k, n), valid=z(k))
+
+
+def refresh_recycle(matvec: Callable, rec: RecycleSpace) -> RecycleSpace:
+    """Re-bind a recycle space to a new operator: ``C' = A U`` by ``k``
+    matvecs, ``C' = Q R`` (QR of the tall ``C'^T`` on the device), then
+    ``U <- R^{-T} U`` and ``C <- Q^T``, so that ``C = A U`` and ``C C^T =
+    I`` hold for the new operator.  Near-zero pivots (the invalid
+    directions' zero columns) are pinned to 1 and their rows zeroed."""
+    dt = rec.U.dtype
+    Cp = torch.stack([matvec(u) for u in rec.U])            # (k, n)
+    Q, R = torch.linalg.qr(Cp.T)                            # (n, k), (k, k)
+    pin = (torch.abs(torch.diagonal(R)) <= 1e-20).to(dt)
+    U = torch.linalg.solve_triangular((R + torch.diag(pin)).T, rec.U,
+                                      upper=False)
+    ok = (rec.valid > 0)[:, None]
+    return RecycleSpace(U=torch.where(ok, U, 0.0),
+                        C=torch.where(ok, Q.T, 0.0), valid=rec.valid)
+
+
 def fgmres(matvec: Callable, pc: Callable, b: torch.Tensor, *,
            maxiter: int = 100, rtol: float = 1e-8,
            reorth_eta: float = 0.0) -> FGMRESResult:
     """Solve ``A x = b`` with right preconditioner ``pc`` (flexible).
     ``reorth_eta = 0`` runs the second Gram-Schmidt pass unconditionally."""
+    return _fgmres(matvec, pc, b, None, maxiter, rtol, reorth_eta)[0]
+
+
+def fgmres_dr(matvec: Callable, pc: Callable, b: torch.Tensor,
+              rec: RecycleSpace, *, maxiter: int = 100, rtol: float = 1e-8,
+              reorth_eta: float = 0.0):
+    """Deflated-recycling FGMRES (GCRO-DR): :func:`fgmres` with the Krylov
+    space augmented by ``rec``, whose ``C = A U`` must hold for this
+    operator (:func:`refresh_recycle` after the operator changed).  Returns
+    ``(result, rec_new)``: ``rec_new`` holds the directions of the smallest
+    singular values of the augmented space, the ones the next solve
+    converges slowest on."""
+    return _fgmres(matvec, pc, b, rec, maxiter, rtol, reorth_eta)
+
+
+def _fgmres(matvec, pc, b, rec: Optional[RecycleSpace], maxiter: int,
+            rtol: float, reorth_eta: float):
     n, m = b.shape[0], maxiter
     dtype, dev = b.dtype, b.device
     npdt = _NP[dtype]
-    bnorm = beta = npdt(torch.linalg.norm(b).cpu())
+    r0 = b
+    if rec is None:
+        bnorm = beta = npdt(torch.linalg.norm(b).cpu())
+    else:
+        # project out the recycle image space; the C components of the
+        # solution are reconstructed at the end (x += U^T (c0 - B y))
+        U, C = rec.U, rec.C
+        kr = U.shape[0]
+        c0 = C @ b
+        r0 = b - C.T @ c0
+        head = torch.cat([torch.stack([torch.linalg.norm(b),
+                                       torch.linalg.norm(r0)]),
+                          rec.valid]).cpu().numpy()
+        bnorm, beta, valid = npdt(head[0]), npdt(head[1]), head[2:]
+        Bm = np.zeros((m, kr), dtype=npdt)          # C w per iteration
+        Hm = np.zeros((m + 1, m), dtype=npdt)       # pre-rotation columns
     syncs = 1
     tol = rtol * bnorm
 
     V = torch.zeros((m + 1, n), dtype=dtype, device=dev)
-    V[0] = b / (beta if beta > 0 else 1.0)
+    V[0] = r0 / (beta if beta > 0 else 1.0)
     Z = torch.zeros((m, n), dtype=dtype, device=dev)
     R = np.zeros((m, m), dtype=npdt)
     cs = np.ones(m, dtype=npdt)
@@ -75,6 +153,11 @@ def fgmres(matvec: Callable, pc: Callable, b: torch.Tensor, *,
         z = pc(V[k])
         w = matvec(z)
         Z[k] = z
+        parts = []
+        if rec is not None:
+            bk = C @ w
+            w = w - C.T @ bk
+            parts = [bk]
         Vk = V[:k + 1]
         wnorm_pre = torch.linalg.norm(w)
         h1 = Vk @ w
@@ -86,13 +169,16 @@ def fgmres(matvec: Callable, pc: Callable, b: torch.Tensor, *,
         w = w - Vk.T @ h2
         wnorm = torch.linalg.norm(w)
         V[k + 1] = w / torch.where(wnorm > 0, wnorm, torch.ones_like(wnorm))
-        col = torch.cat([h1 + h2, torch.stack([wnorm, wnorm_pre])])
+        col = torch.cat([h1 + h2, torch.stack([wnorm, wnorm_pre])] + parts)
         col = col.cpu().numpy()
         syncs += 1
         h = np.zeros(m + 1, dtype=npdt)
         h[:k + 1] = col[:k + 1]
         h[k + 1] = col[k + 1]
         wn, wn_pre = col[k + 1], col[k + 2]
+        if rec is not None:
+            Bm[k] = col[k + 3:]
+            Hm[:, k] = h
         # (near-)breakdown: the new direction lies numerically in the span;
         # normalizing it would inject amplified noise into the basis and
         # decouple the estimate from the true residual.  Stop instead.
@@ -111,10 +197,57 @@ def fgmres(matvec: Callable, pc: Callable, b: torch.Tensor, *,
         k += 1
 
     x = torch.zeros_like(b)
+    y = np.zeros(0, dtype=npdt)
     if k:
         y = solve_triangular(R[:k, :k], g[:k], lower=False).astype(npdt)
         x = Z[:k].T @ torch.as_tensor(y, device=dev)
     hist[k + 1:] = hist[k]
-    return FGMRESResult(x=x, iters=k, resnorms=hist,
-                        converged=bool(hist[m] <= tol), bnorm=float(bnorm),
-                        host_syncs=syncs)
+    result = FGMRESResult(x=x, iters=k, resnorms=hist,
+                          converged=bool(hist[m] <= tol), bnorm=float(bnorm),
+                          host_syncs=syncs)
+    if rec is None:
+        return result, None
+    x = x + U.T @ (c0 - torch.as_tensor(Bm[:k].T @ y, device=dev))
+    # C-space correction passes: the reconstruction trusts C = A U, which
+    # holds to rounding only; each pass removes the C component of the
+    # true residual once more, for one matvec
+    for _ in range(2):
+        x = x + U.T @ (C @ (b - matvec(x)))
+    rec_new = _deflation_update(matvec, rec, valid, Z[:k], Bm[:k],
+                                Hm[:k + 1, :k])
+    return result._replace(x=x), rec_new
+
+
+def _deflation_update(matvec, rec: RecycleSpace, valid: np.ndarray, Z,
+                      Bm: np.ndarray, Hm: np.ndarray) -> RecycleSpace:
+    """The next recycle space from the combined space ``[U, Z]``.
+
+    The augmented Arnoldi relation is ``A [U, Z] = [C, V] G`` with ``G =
+    [[diag(valid), B^T], [0, H]]`` over the ``k_it`` active iterations.
+    The new span is that of the ``k`` right singular directions of ``G``
+    with the smallest singular values; a direction with weight on an
+    invalid column of ``U`` scores 1e6 higher, so valid candidates come
+    first and a direction is kept only if it lives in the valid columns
+    (a short solve fills the space partly).  Only the span is taken from
+    the small problem: ``C = A U`` is re-bound by matvecs and a QR
+    (mapping ``U`` through ``G``'s tiny singular values would amplify
+    their rounding by ``1/sigma_min``)."""
+    kr = rec.U.shape[0]
+    k_it = Z.shape[0]
+    G = np.zeros((kr + k_it + 1, kr + k_it))
+    G[:kr, :kr] = np.diag(valid)
+    G[:kr, kr:] = Bm.T
+    G[kr:, kr:] = Hm
+    _, sig, Vt = np.linalg.svd(G)                   # sig descending
+    inv_energy = (Vt ** 2) @ np.concatenate([1.0 - valid, np.zeros(k_it)])
+    scores = sig + 1e6 * inv_energy
+    idx = np.argsort(scores, kind="stable")[:kr]
+    sel_ok = (inv_energy[idx] < 0.5).astype(np.float64)
+    W = torch.as_tensor(Vt[idx] * sel_ok[:, None], dtype=rec.U.dtype,
+                        device=rec.U.device)        # (kr, kr + k_it)
+    Ut = W[:, :kr] @ rec.U + W[:, kr:] @ Z          # (kr, n)
+    ok = torch.as_tensor(sel_ok, dtype=rec.U.dtype, device=rec.U.device)
+    # orthonormalize the span (invalid rows are zero and sorted last)
+    Qu = torch.linalg.qr(Ut.T)[0] * ok[None, :]
+    return refresh_recycle(matvec, RecycleSpace(
+        U=Qu.T.contiguous(), C=torch.zeros_like(Ut), valid=ok))

@@ -2,9 +2,16 @@
 
   * :meth:`NonlinearSolver.solve`: Picard or Newton steps, each one
     :meth:`OseenSolver.solve` in the compute dtype (the driver of the model
-    entry points and of Reynolds continuation);
-  * :meth:`NonlinearSolver.make_full_solve`: Picard with Anderson mixing,
-    each step one high-precision solve (the headline benchmark's driver).
+    entry points and of Reynolds continuation), optionally damped;
+  * :meth:`NonlinearSolver.make_full_solve`: damped Picard or Newton steps,
+    each one high-precision solve, with optional Anderson mixing and the
+    GCRO-DR recycle space threaded from step to step under
+    ``krylov.recycle`` (the headline benchmark's loop);
+  * :meth:`NonlinearSolver.solve_fused`: the same loop without Anderson
+    mixing, returning a :class:`NonlinearResult` (the high-Re path).
+
+Under ``system_supg`` the residual is the SUPG-stabilized one, as the
+Picard operator is.
 
 For enclosed flow (no outflow) the pressure is defined up to a constant:
 the residual's continuity part is projected onto zero mean, and each
@@ -86,18 +93,19 @@ class NonlinearSolver:
         its norm as a 0-dim tensor."""
         asm, n_u = self.asm, self.n_u
         dt_hi = asm.dtype
-        c32 = self.oseen.config.krylov.hi_res_f32
+        cfg = self.oseen.config
         ru, rp = asm.residual(w[:n_u].to(dt_hi), w[n_u:].to(dt_hi),
-                              compute32=c32)
+                              supg=cfg.system_supg,
+                              compute32=cfg.krylov.hi_res_f32)
         if self.enclosed:
             rp = rp - torch.mean(rp)
         F = torch.cat([self.oseen.free_u.to(dt_hi) * ru, rp])
         return F, torch.linalg.norm(F)
 
     def solve(self, w0: Optional[torch.Tensor] = None, *, rtol: float = 1e-5,
-              max_steps: int = 25) -> NonlinearResult:
-        """Picard or Newton steps ``w += dw`` from ``w0`` (default the
-        initial state), each ``dw`` one :meth:`OseenSolver.solve` of
+              max_steps: int = 25, damping: float = 1.0) -> NonlinearResult:
+        """Picard or Newton steps ``w += damping * dw`` from ``w0`` (default
+        the initial state), each ``dw`` one :meth:`OseenSolver.solve` of
         ``J(w) dw = -F(w)``, until ``|F| <= max(rtol * |F_0|, 1e-12)`` (the
         JAX package's default absolute floor).  The state is carried in the
         compute dtype."""
@@ -124,32 +132,57 @@ class NonlinearSolver:
             dw = result.x
             if self.enclosed:
                 dw = torch.cat([dw[:n_u], dw[n_u:] - torch.mean(dw[n_u:])])
-            w = w + dw
+            w = w + damping * dw
         return NonlinearResult(w=w, nonlinear_res=res_hist,
                                linear_iters=it_hist, linear_resnorms=rn_hist,
                                converged=converged,
                                wall_time=time.perf_counter() - t0,
                                lin_rel=lin_rel)
 
+    def solve_fused(self, w0: Optional[torch.Tensor] = None, *,
+                    rtol: float = 1e-5, rtol_lin: float = 1e-8,
+                    max_steps: int = 25, damping: float = 1.0,
+                    callback=None) -> NonlinearResult:
+        """Damped steps ``w += damping * x`` from ``w0`` (default the initial
+        state): :meth:`make_full_solve`'s loop without Anderson mixing,
+        returned as a :class:`NonlinearResult` (no residual estimates)."""
+        t0 = time.perf_counter()
+        r = self.make_full_solve(rtol, rtol_lin, max_steps, damping=damping,
+                                 callback=callback)(w0)
+        return NonlinearResult(w=r.w, nonlinear_res=r.res,
+                               linear_iters=r.iters, linear_resnorms=[],
+                               converged=r.converged,
+                               wall_time=time.perf_counter() - t0,
+                               lin_rel=r.lin_rel)
+
     def make_full_solve(self, rtol: float = 1e-5, rtol_lin: float = 1e-8,
-                        max_steps: int = 25, anderson: int = 0):
-        """Return ``full(w0) -> FullSolveResult``: Picard steps (residual,
-        linear solve, update) until ``|F| <= rtol * |F_0|``.
+                        max_steps: int = 25, anderson: int = 0, *,
+                        damping: float = 1.0, callback=None):
+        """Return ``full(w0=None) -> FullSolveResult``: steps (residual in the
+        assembler's precision, one high-precision solve
+        (:meth:`OseenSolver.make_ir_solve`) of ``J(w) x = -F(w)`` to
+        ``rtol_lin``, update ``w += damping * x``) from ``w0`` (default the
+        initial state) until ``|F| <= rtol * |F_0|``.  The state is carried
+        in the assembler's precision.
 
         ``anderson = m >= 2`` adds type-II Anderson mixing with window m over
-        the Picard map g(w) = w + x: minimize ||x - dF gamma|| over the
-        history's affine hull.  The (m-1)^2 normal equations are solved in
-        the compute dtype, as in the JAX package."""
+        the Picard map g(w) = w + damping * x: minimize ||x - dF gamma|| over
+        the history's affine hull.  The (m-1)^2 normal equations are solved
+        in the compute dtype, as in the JAX package.  With ``krylov.recycle
+        > 0`` the GCRO-DR space of each solve deflates the next.
+        ``callback(k, rn, iters, lin_rel)`` is called after step k's solve
+        with that step's |F|, outer count and true relative residual."""
         ir = self.oseen.make_ir_solve(rtol_lin)
         m = int(anderson)
         fdt = self.oseen.dtype
         n_u = self.n_u
 
-        def full(w0: torch.Tensor) -> FullSolveResult:
-            w = w0.to(self.asm.dtype)
+        def full(w0: Optional[torch.Tensor] = None) -> FullSolveResult:
+            w = (self.initial_state() if w0 is None else w0).to(
+                self.asm.dtype)
             dev, dt_hi = w.device, w.dtype
             iters, res, lin_rel = [], [], []
-            syncs, r0, k, converged = 0, 1.0, 0, False
+            syncs, r0, k, converged, rec = 0, 1.0, 0, False, None
             if m >= 2:
                 Fh = torch.zeros((m, self.n), dtype=dt_hi, device=dev)
                 Gh = torch.zeros((m, self.n), dtype=dt_hi, device=dev)
@@ -164,11 +197,13 @@ class NonlinearSolver:
                 if rn <= rtol * r0:
                     converged = True
                     break
-                x, it, rn_lin, lin = ir(w[:n_u], -F)
-                lin_rel.append(float(rn_lin) / lin.bnorm)
+                x, it, rn_lin, lin, rec = ir(w[:n_u], -F, rec)
+                lin_rel.append(float(rn_lin) / max(lin.bnorm, 1e-300))
                 syncs += 1 + lin.host_syncs
-                iters.append(it)
-                g = w + x
+                iters.append(int(it))
+                if callback is not None:
+                    callback(k, rn, iters[-1], lin_rel[-1])
+                g = w + damping * x
                 if m >= 2:
                     Fh = torch.roll(Fh, -1, dims=0)
                     Fh[-1] = x

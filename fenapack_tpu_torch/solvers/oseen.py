@@ -7,11 +7,14 @@ nullspace), Ap by pressure multigrid, Chebyshev or dense LU, Mp by
 Chebyshev, the velocity block by multigrid or dense LU.  ``theta`` and
 ``inv_dt`` turn the operator into the unsteady schemes' effective one,
 ``theta A1 + inv_dt M`` with ``theta R``, in the system matvec, the velocity
-multigrid and the PCD apply (``Mp/dt`` in Fp).  Two solves:
-:meth:`OseenSolver.solve`, FGMRES in the compute dtype to ``krylov.rtol``,
-and the single-round high-precision solve of :meth:`make_ir_solve` (the JAX
-package's ``krylov.hi_krylov``): f64 FGMRES with the f64 system matvec
-around a preconditioner in the compute dtype.
+multigrid and the PCD apply (``Mp/dt`` in Fp).  SUPG streamline diffusion
+enters the system operator under ``system_supg`` (before the theta
+combination) and the preconditioner's velocity operator alone under
+``jpc_supg``.  Two solves: :meth:`OseenSolver.solve`, FGMRES in the compute
+dtype to ``krylov.rtol``, and the single-round high-precision solve of
+:meth:`make_ir_solve` (the JAX package's ``krylov.hi_krylov``): f64 FGMRES
+with the f64 system matvec around a preconditioner in the compute dtype,
+with GCRO-DR recycling across solves under ``krylov.recycle``.
 
 Monolithic vector layout: ``x = [u_x (n2); u_y (n2); p (n1)]``.
 """
@@ -27,7 +30,7 @@ from ..ops import subsolve
 from ..ops.sparse import ELL
 from .config import SolverConfig, SubsolveConfig
 from .fieldsplit import make_fieldsplit_upper
-from .krylov import fgmres
+from .krylov import empty_recycle, fgmres, fgmres_dr, refresh_recycle
 from .pcd import make_pcd_apply
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -167,12 +170,15 @@ class OseenSolver:
     # -------------------------------------------------------------- #
     def _operator_values_raw(self, wind: torch.Tensor, hi: bool = True):
         """Operator values ``(A1, R)`` in the wind's precision class: A1 the
-        Picard operator (unsteady: ``theta A1 + inv_dt M2``), R the
-        (d, d, ...) Newton reaction blocks (unsteady: times theta) or None
-        for Picard.  The high-precision operator runs its per-step integrals
-        in f32 when ``krylov.hi_ops_f32`` (as the JAX package does)."""
+        Picard operator (``system_supg``: plus the streamline diffusion;
+        unsteady: ``theta A1 + inv_dt M2``), R the (d, d, ...) Newton
+        reaction blocks (unsteady: times theta) or None for Picard.  The
+        high-precision operator runs its per-step convection integrals in
+        f32 when ``krylov.hi_ops_f32`` (as the JAX package does)."""
         c32 = bool(hi) and self.config.krylov.hi_ops_f32
         A1 = self.asm.picard_matrix_values(wind, hi=hi, compute32=c32)
+        if self.config.system_supg:
+            A1 = A1 + self.asm.supg_values(wind, hi=hi).to(A1.dtype)
         if self.theta != 1.0 or self.inv_dt != 0.0:
             M2 = self.asm.mass2(hi=hi).vals
             A1 = self.theta * A1 + self.inv_dt * M2.to(A1.dtype)
@@ -248,17 +254,22 @@ class OseenSolver:
                 self.bc_mask_u, self.dtype,
                 newton=self.linearization == "newton",
                 fine_values=(A1vals, R), theta=self.theta,
-                inv_dt=self.inv_dt)
+                inv_dt=self.inv_dt,
+                supg=self.config.jpc_supg or self.config.system_supg)
         raise NotImplementedError(
             f"velocity method {cfg.method!r} is not ported")
 
     def _pipeline(self, wind: torch.Tensor, values=None):
         """The preconditioner at ``wind`` in the compute dtype.  ``values``
-        are the compute-dtype ``(A1, R)`` at ``wind`` when the caller has
-        them already."""
+        are the compute-dtype system operator values ``(A1, R)`` at ``wind``
+        when the caller has them already; under ``jpc_supg`` the velocity
+        subsolve takes its own copy of A1 with the streamline diffusion, and
+        the system keeps the unstabilized one."""
         cfg = self.config
         c = self.asm.const
         A1vals, R = self._operator_values(wind) if values is None else values
+        if cfg.jpc_supg and not cfg.system_supg:
+            A1vals = A1vals + self.asm.supg_values(wind).to(self.dtype)
         kp = self.asm.pat_p1.matrix(self.asm.kp_values(
             wind, surface=(cfg.pcd.variant == "BRM2")).to(self.dtype))
         a_solve = self._velocity_solver(A1vals, wind, R=R)
@@ -283,22 +294,41 @@ class OseenSolver:
                      reorth_eta=kcfg.reorth_eta)
         return res, matvec
 
+    def initial_recycle(self):
+        """An empty GCRO-DR recycle space of ``krylov.recycle`` directions,
+        in the assembler's (high) precision, where :meth:`make_ir_solve`
+        keeps it."""
+        return empty_recycle(self.config.krylov.recycle, self.n,
+                             self.asm.dtype, self.asm.device)
+
     def make_ir_solve(self, rtol: float = 1e-8):
-        """Return ``ir(wind, b) -> (x, iters, true_resnorm, result)``: one
-        f64 FGMRES solve to ``rtol`` with the high-precision system matvec
-        and the compute-dtype preconditioner (cast f64 -> compute -> f64
-        around each apply), then the true residual in f64."""
+        """Return ``ir(wind, b, rec=None) -> (x, iters, true_resnorm,
+        result, rec)``: one f64 FGMRES solve to ``rtol`` with the
+        high-precision system matvec and the compute-dtype preconditioner
+        (cast f64 -> compute -> f64 around each apply), then the true
+        residual in f64.  With ``krylov.recycle > 0`` the solve is GCRO-DR:
+        the recycle space ``rec`` of the previous solve (None: an empty one)
+        is re-bound to this operator, deflates the solve, and the new space
+        is returned as ``rec``; otherwise ``rec`` comes back None."""
         dt_hi = self.asm.dtype
         kcfg = self.config.krylov
 
-        def ir(wind: torch.Tensor, b: torch.Tensor):
+        def ir(wind: torch.Tensor, b: torch.Tensor, rec=None):
             A1h, Rh = self._operator_values_raw(wind.to(dt_hi), hi=True)
             matvec_hi = self._matvec_factory(A1h, Rh, hi=True)
             pc = self._pipeline(wind.to(self.dtype))
             pc_hi = lambda r: pc(r.to(self.dtype)).to(dt_hi)
             b64 = b.to(dt_hi)
-            res = fgmres(matvec_hi, pc_hi, b64, maxiter=kcfg.maxiter,
-                         rtol=rtol, reorth_eta=kcfg.reorth_eta)
+            if kcfg.recycle:
+                if rec is None:
+                    rec = self.initial_recycle()
+                rec = refresh_recycle(matvec_hi, rec)
+                res, rec = fgmres_dr(matvec_hi, pc_hi, b64, rec,
+                                     maxiter=kcfg.maxiter, rtol=rtol,
+                                     reorth_eta=kcfg.reorth_eta)
+            else:
+                res = fgmres(matvec_hi, pc_hi, b64, maxiter=kcfg.maxiter,
+                             rtol=rtol, reorth_eta=kcfg.reorth_eta)
             rn = torch.linalg.norm(b64 - matvec_hi(res.x))
-            return res.x, res.iters, rn, res
+            return res.x, res.iters, rn, res, rec
         return ir

@@ -98,6 +98,7 @@ class UnsteadySolver:
                                  theta=1.0 if bdf2 else self.theta,
                                  inv_dt=(1.5 if bdf2 else 1.0) / self.dt)
         self.n_u, self.n = self.oseen.n_u, self.oseen.n
+        self._supg = config.system_supg
 
     # -------------------------------------------------------------- #
     # residuals
@@ -112,8 +113,10 @@ class UnsteadySolver:
 
     def _conv_part(self, u: torch.Tensor) -> torch.Tensor:
         """The convection-diffusion residual of one velocity state, without
-        the pressure gradient: the theta-weighted piece."""
-        return self.asm.residual(u, None)[0].to(self.oseen.dtype)
+        the pressure gradient: the theta-weighted piece (SUPG-stabilized
+        under ``system_supg``, as the Jacobian is)."""
+        return self.asm.residual(u, None, supg=self._supg)[0].to(
+            self.oseen.dtype)
 
     def _residual_full(self, w: torch.Tensor, u_old: torch.Tensor,
                        aux: torch.Tensor) -> torch.Tensor:
@@ -126,7 +129,7 @@ class UnsteadySolver:
         asm, o = self.asm, self.oseen
         n_u, dtc, th, idt = self.n_u, o.dtype, self.theta, 1.0 / self.dt
         u, p = w[:n_u], w[n_u:]
-        conv_new, rp = asm.residual(u, None)
+        conv_new, rp = asm.residual(u, None, supg=self._supg)
         gp = asm.grad_p(p.to(asm.dtype)).to(dtc)
         if self.scheme == "bdf2":
             acc = (3.0 * u - 4.0 * u_old + aux).to(dtc)
@@ -263,7 +266,7 @@ class UnsteadySolver:
         asm, n_u = self.asm, self.n_u
         dt_hi = asm.dtype
         u, p = w[:n_u].to(dt_hi), w[n_u:].to(dt_hi)
-        conv, rp = asm.residual(u, None)
+        conv, rp = asm.residual(u, None, supg=self._supg)
         ru = conv + asm.grad_p(p)
         if self.scheme == "bdf2":
             ru = ru + self._mass(u_prev.to(dt_hi) - u) * (0.5 / self.dt)
@@ -286,7 +289,10 @@ class UnsteadySolver:
         ``functional(w_new, u_old, u_prev) -> (k,)`` (for example
         ``utils.functionals.make_device_functional``) is evaluated after
         every step on the state's device; the values come back stacked as
-        ``UnsteadyResult.functionals``.  ``u_prev0``: see :meth:`solve`."""
+        ``UnsteadyResult.functionals``.  ``u_prev0``: see :meth:`solve`.
+        With ``krylov.recycle > 0`` the GCRO-DR space of each step's solve
+        deflates the next step's (consecutive operators differ only by the
+        wind)."""
         if self.bc_fn is not None:
             raise ValueError(
                 "time-dependent BCs (bc_fn) need the exact time loop: use "
@@ -298,13 +304,13 @@ class UnsteadySolver:
         n_u = self.n_u
         w = (self.initial_state() if w0 is None else w0).to(self.asm.dtype)
         u_prev = w[:n_u] if u_prev0 is None else u_prev0.to(w.dtype)
-        t = 0.0
+        t, rec = 0.0, None
         times, iters, resid, lin_rel, fvals = [], [], [], [], []
         hist = [] if keep_history else None
         for k in range(int(round(t_end / self.dt))):
             u_old = w[:n_u]
             F, rn = self._residual_hi(w, u_prev)
-            x, it, rn_lin, lin = ir(u_old, -F)
+            x, it, rn_lin, lin, rec = ir(u_old, -F, rec)
             w = w + x
             if functional is not None:
                 fvals.append(functional(w, u_old, u_prev))

@@ -4,13 +4,16 @@ kernel stays above its bound.
     python -m fenapack_tpu_torch.trace [--problem cavity] [--steps 2]
     python -m fenapack_tpu_torch.trace --problem step [--level 2]
     python -m fenapack_tpu_torch.trace --problem cylinder [--steps 2]
+    python -m fenapack_tpu_torch.trace --problem highre [--steps 2]
 
 ``cavity``: the slice's Re-100 solver (``fenapack_tpu_torch.cavity``), its
 first ``--steps`` Newton steps.  ``step``: the step benchmark's full solve
 (``fenapack_tpu_torch.bench``).  ``cylinder``: DFG 2D-2 at level 2
 (``fenapack_tpu_torch.cylinder``), its first ``--steps`` semi-implicit BDF2
 steps from the impulsive start; ``cylinder-2d1``: the first ``--steps``
-Newton steps of DFG 2D-1.  The solve runs once as a warm-up, once
+Newton steps of DFG 2D-1.  ``highre``: BASELINE config 5 at Re 2000
+(``fenapack_tpu_torch.highre``, level 2), its first ``--steps`` damped
+Picard steps on the stabilized system.  The solve runs once as a warm-up, once
 unprofiled (wall time, peak device memory) and once under
 ``torch.profiler``, and one JSON line is printed: the FGMRES iterations,
 the wall time with and without the profiler, the device busy time (the sum
@@ -36,7 +39,7 @@ import time
 
 import torch
 
-from . import bench, cavity, cylinder, measure
+from . import bench, cavity, cylinder, highre, measure
 from .ops import sparse
 
 # the kernels' device events, e.g.
@@ -133,6 +136,13 @@ def _solver(problem: str, level: int, steps: int, dev):
         us = cylinder.build(level, 100, device=dev, unsteady=True)
         return (lambda: us.solve_fused(steps * us.dt),
                 lambda r: r.linear_iters, us.n)
+    if problem == "highre":
+        nl = highre.build(level, device=dev)
+        return (lambda: nl.solve_fused(rtol=highre.RTOL,
+                                       rtol_lin=highre.RTOL_LIN,
+                                       max_steps=steps,
+                                       damping=highre.DAMPING),
+                lambda r: r.linear_iters, nl.n)
     if problem == "cylinder-2d1":
         nl = cylinder.build(level, 20, device=dev)
         return (lambda: nl.solve(rtol=cylinder.RTOL, max_steps=steps),
@@ -217,13 +227,13 @@ def run(problem: str = "cavity", level: int = None, steps: int = 2) -> dict:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--problem", choices=("cavity", "step", "cylinder",
-                                          "cylinder-2d1"),
+                                          "cylinder-2d1", "highre"),
                     default="cavity")
     ap.add_argument("--level", type=int, default=None)
     ap.add_argument("--steps", type=int, default=2,
                     help="Newton steps of the cavity and of cylinder-2d1, "
-                         "BDF2 steps of the cylinder (the step runs its "
-                         "full solve)")
+                         "BDF2 steps of the cylinder, damped Picard steps "
+                         "of highre (the step runs its full solve)")
     args = ap.parse_args(argv)
     print(json.dumps(run(args.problem, args.level, args.steps)), flush=True)
 

@@ -24,10 +24,10 @@ def _boundary_mask(asm, markers: Sequence[int], dtype) -> torch.Tensor:
     return torch.as_tensor(mask, dtype=dtype, device=asm.device)
 
 
-def _reaction(asm, u, p, du_dt, mask) -> torch.Tensor:
-    """The (d,) force on the masked boundary from the raw residual, as a
-    tensor on the state's device."""
-    ru = asm.residual(u, None)[0] + asm.grad_p(p)
+def _reaction(asm, u, p, du_dt, mask, supg: bool = False) -> torch.Tensor:
+    """The (d,) force on the masked boundary from the raw residual
+    (``supg``: the stabilized one), as a tensor on the state's device."""
+    ru = asm.residual(u, None, supg=supg)[0] + asm.grad_p(p)
     if du_dt is not None:
         M2 = asm.mass2(hi=True)
         ru = ru + torch.cat([M2.mv(c) for c in asm.split_u(du_dt)])
@@ -35,7 +35,7 @@ def _reaction(asm, u, p, du_dt, mask) -> torch.Tensor:
 
 
 def boundary_reaction(asm, u: torch.Tensor, p: torch.Tensor,
-                      markers: Sequence[int],
+                      markers: Sequence[int], supg: bool = False,
                       du_dt: Optional[torch.Tensor] = None) -> np.ndarray:
     """Force (Fx, Fy) exerted by the fluid on the ``markers`` boundary.
 
@@ -45,11 +45,12 @@ def boundary_reaction(asm, u: torch.Tensor, p: torch.Tensor,
     fluid; the returned force is its negative, drag positive downstream.
     For unsteady states pass ``du_dt`` (stacked like ``u``): the identity
     then needs the inertial term ``int phi_j du/dt`` on the boundary rows,
-    nonzero over the boundary cells even on a no-slip obstacle."""
+    nonzero over the boundary cells even on a no-slip obstacle.  ``supg``
+    takes the SUPG-stabilized residual (a ``system_supg`` solution)."""
     dt_hi = asm.dtype
     F = _reaction(asm, u.to(dt_hi), p.to(dt_hi),
                   None if du_dt is None else du_dt.to(dt_hi),
-                  _boundary_mask(asm, markers, dt_hi))
+                  _boundary_mask(asm, markers, dt_hi), supg=supg)
     return F.cpu().numpy()
 
 
@@ -105,7 +106,7 @@ def eval_p1(asm, pvals, points) -> np.ndarray:
 
 def make_device_functional(asm, markers: Sequence[int], points=(),
                            scheme: str = "steady",
-                           dt: Optional[float] = None):
+                           dt: Optional[float] = None, supg: bool = False):
     """Build a per-step functional ``fn(w_new, u_old, u_prev) -> (d + k,)``:
     the boundary-reaction force components on ``markers`` followed by the
     pressure values at ``points``, a tensor on the state's device (no host
@@ -113,7 +114,8 @@ def make_device_functional(asm, markers: Sequence[int], points=(),
 
     ``scheme``: "steady" (no inertial term), "theta" (backward-difference
     du/dt) or "bdf2" (the stepper's own second-order derivative
-    ``(3u - 4u_old + u_prev) / (2 dt)``)."""
+    ``(3u - 4u_old + u_prev) / (2 dt)``).  ``supg``: the stabilized
+    residual, as :func:`boundary_reaction`."""
     if scheme not in ("steady", "theta", "bdf2"):
         raise ValueError(f"unknown scheme {scheme!r}")
     if scheme != "steady" and dt is None:
@@ -137,7 +139,7 @@ def make_device_functional(asm, markers: Sequence[int], points=(),
             du_dt = (u - u_old.to(dt_hi)) * idt
         else:
             du_dt = None
-        force = _reaction(asm, u, p, du_dt, mask)
+        force = _reaction(asm, u, p, du_dt, mask, supg=supg)
         if idx is None:
             return force
         return torch.cat([force, torch.sum(p[idx] * wts, dim=1)])

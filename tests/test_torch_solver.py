@@ -356,7 +356,11 @@ def test_config_carries_only_what_the_port_reads():
         ("float32", "BRM2", "gmg")
     assert (cfg.krylov.maxiter, cfg.velocity.smooth_iters,
             cfg.velocity.cycles) == (bench.MAXITER, 3, 2)
-    for key in ("krylov.recycle", "krylov.hi_krylov", "velocity.iters",
-                "pcd.ap.smoother", "system_supg"):
+    for key in ("krylov.split_assembly", "krylov.hi_krylov",
+                "velocity.iters", "pcd.ap.smoother", "krylov.hi_matvec"):
         with pytest.raises((TypeError, AttributeError)):
             overrides(SolverConfig(), {key: 1})
+    # SUPG and GCRO-DR are carried since they were ported
+    c = overrides(SolverConfig(), {"krylov.recycle": 8, "system_supg": True,
+                                   "jpc_supg": True})
+    assert (c.krylov.recycle, c.system_supg, c.jpc_supg) == (8, True, True)
