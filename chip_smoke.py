@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's four paths on the card (the step benchmark, the
+Drives the port's five paths on the card (the step benchmark, the
 lid-driven cavity, the DFG cylinder, the SUPG-stabilized step at high
-Reynolds number), in phases that each print one or more lines:
+Reynolds number, the 3D backward-facing step), in phases that each print
+one or more lines:
 
   1. device  - require CUDA; print ``nvidia-smi`` name and power limit.
   2. build   - compile every kernel library from csrc/ (one nvcc per source,
@@ -92,6 +93,28 @@ Reynolds number), in phases that each print one or more lines:
  16. highre-reference - level 1, card against CPU: 3 damped Picard steps at
                Re 2000 with and without recycling; per-step counts within 1,
                states within 1e-6.
+ 17. step3d-kernels - BASELINE config 4 at level 3, length 3 (760,852
+               dofs; velocity levels of 685 / 4,473 / 32,113 / 242,913
+               rows, tet P2 rows up to 65 wide): the wind after one Picard step; on every
+               velocity level the block product at d = 3 without R and with
+               the Newton R (and y0), and the single product on D, B^T, Ap
+               of every pressure level, Mp and Kp, through K3 against the
+               plain version (f64, 1e-12); for the fine A1 the times of the
+               kernel, the plain version and three (twelve with R) cuSPARSE
+               CSR products beside two bounds: the padded ELL bytes and the
+               bytes of the pattern's own entries, over 3.35 TB/s.
+ 18. step3d  - config 4 through ``step3d.build(3)``: setup seconds by
+               stage, two Picard steps each solved to a true 1e-8 under the
+               cap of 120; counts, ``lin_rel``, seconds per step, K3
+               launches per FGMRES iteration (none of BSR), peak device
+               memory, max |D u| <= 1e-9 and max |u| <= 1.05.
+ 19. step3d-reference - level 1 (14,104 dofs), card against CPU, two
+               Picard steps: equal counts, states within 1e-7.
+ 20. determinism - on the card, each twice and bit for bit equal: the
+               assembly of A1, Kp and the Newton R at one wind on the 3D
+               level-3 step, one 3D velocity V-cycle apply on a fixed
+               vector, and three recycled (16) damped Picard steps of config
+               5 at level 1 (the states).
 
 Then one JSON line with the kernels' records, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit, no
@@ -135,6 +158,11 @@ HR_RECYCLE = 16
 # space of 16 costs iterations there (level 1 on the CPU, both packages'
 # algorithm: 255 -> 266 in steps 2-10), 8 saves a few (249)
 CYL_RECYCLE = 8
+# BASELINE config 4 at the size of the JAX package's largest completed TPU
+# solve (760,852 dofs: level 3, length 3; the 2,050,228-dof length 9 runs
+# through ``python -m fenapack_tpu_torch.step3d -l 3 --length 9``)
+S3_LEVEL, S3_LENGTH, S3_STEPS = 3, 3.0, 2
+S3_HEADLINE = f"A1 velocity level {S3_LEVEL}"
 PTXAS = re.compile(r"Compiling entry function '(\w+)'|(\d+) bytes spill "
                    r"stores, (\d+) bytes spill loads|Used (\d+) registers")
 
@@ -198,7 +226,7 @@ def main():
     from fenapack_tpu_torch import (backward_step_mesh, bench, cavity,
                                     cavity_mesh, cylinder,
                                     cylinder_channel_mesh, highre, measure,
-                                    snap_to_circle)
+                                    snap_to_circle, step3d)
     from fenapack_tpu_torch.models import ObstacleChannel2D
     from fenapack_tpu_torch.ops import bsr_spmv, ell_spmv, kernels
     from fenapack_tpu_torch.solvers import gmg
@@ -980,6 +1008,195 @@ def main():
                  f"differ by {diff}")
     done("highre-reference", t0)
 
+    # ---- 17. K3 at d = 3 against the plain version at config 4 -------- #
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    s3 = step3d.build(S3_LEVEL, length=S3_LENGTH, device=dev)
+    setup_s = time.perf_counter() - t0
+    r = s3.solve_fused(rtol=step3d.RTOL, rtol_lin=step3d.RTOL_LIN,
+                       max_steps=1)
+    wind3 = r.w[:s3.n_u]
+    s3levels = step3d.velocity_levels(s3, wind3, newton=True)
+    torch.cuda.synchronize()
+    print(f"[step3d-kernels] level {S3_LEVEL}, length {S3_LENGTH:g}: "
+          f"{s3.n} dofs ({s3.asm.mesh.num_cells} cells), velocity levels "
+          f"{[p.n_rows for p, _, _ in s3levels]} rows of width "
+          f"{[p.K for p, _, _ in s3levels]}; setup {setup_s:.3f} s "
+          f"({json.dumps(s3.setup_seconds)}); wind after one Picard step "
+          f"({r.linear_iters} iterations)", flush=True)
+    s3rec = {"single": {}, "block": {}, "block_with_R": {}}
+    a3, o3 = s3.asm, s3.oseen
+    ops = [(f"D{a}", a3.pat_div, a3.const.D[a].vals) for a in range(3)]
+    ops += [(f"Bt{a}", a3.pat_divT, a3.const.DT[a].vals) for a in range(3)]
+    ops += [("Mp", a3.pat_p1, a3.const.Mp.vals),
+            ("Kp", a3.pat_p1, a3.kp_values(wind3, surface=True))]
+    ops += [(f"Ap pressure level {l}", lev.asm.pat_p1, lev.Ap.vals)
+            for l, lev in enumerate(o3.ap_hierarchy.levels)]
+    for name, pat, vals in ops:
+        x = torch.as_tensor(rng.standard_normal(pat.n_cols),
+                            dtype=torch.float64, device=dev)
+        abs_err, rel = rel_err(
+            ell_spmv.ell_spmv(pat.cols, vals, x, pat.n_cols),
+            ell_spmv.ell_spmv_plain(pat.cols, vals, x, pat.n_cols))
+        erec["f64"]["max_abs_err"] = max(erec["f64"]["max_abs_err"], abs_err)
+        line = (f"[step3d-kernels] {name:20s} f64 ELL {tuple(vals.shape)}: "
+                f"max rel err {rel} (tol {F64_TOL})")
+        if name == "D0":
+            kernel = lambda: ell_spmv.ell_spmv(pat.cols, vals, x, pat.n_cols)
+            plain = lambda: ell_spmv.ell_spmv_plain(pat.cols, vals, x,
+                                                    pat.n_cols)
+            lib = measure.library(measure.csr_library(pat, vals), x)
+            nbytes = measure.ell_bytes(vals, pat.n_cols)
+            s3rec["single"], why = yardsticks(kernel, plain, lib, nbytes,
+                                              2 * pat.nnz, torch.float64)
+            line += (f"; {json.dumps(s3rec['single'])}; cuSPARSE CSR "
+                     f"{why or 'taken'}; {nbytes} B")
+        print(line, flush=True)
+        _require(rel <= F64_TOL, f"config 4 {name}: kernel disagrees with "
+                 f"plain ({rel} > {F64_TOL})")
+    top = len(s3levels) - 1
+    for l, (pat, A1, R) in enumerate(s3levels):
+        x = torch.as_tensor(rng.standard_normal((3, pat.n_cols)),
+                            dtype=torch.float64, device=dev)
+        y0 = torch.as_tensor(rng.standard_normal((3, pat.n_rows)),
+                             dtype=torch.float64, device=dev)
+        rels = []
+        for RR, yy in ((None, None), (None, y0), (R, None), (R, y0)):
+            abs_err, rel = rel_err(
+                ell_spmv.ell_block_spmv(pat.cols, A1, RR, x, pat.n_cols, yy),
+                ell_spmv.ell_block_spmv_plain(pat.cols, A1, RR, x,
+                                              pat.n_cols, yy))
+            rels.append(rel)
+            brec["f64"]["max_abs_err"] = max(brec["f64"]["max_abs_err"],
+                                             abs_err)
+        print(f"[step3d-kernels] block product d = 3 velocity level {l} f64 "
+              f"ELL {tuple(A1.shape)}: max rel err without R {rels[0]}, "
+              f"with y0 {rels[1]}, with R {rels[2]}, with R and y0 "
+              f"{rels[3]} (tol {F64_TOL})", flush=True)
+        _require(max(rels) <= F64_TOL, f"config 4 block product level {l}: "
+                 f"kernel disagrees with plain ({rels} > {F64_TOL})")
+        if l != top:
+            continue
+        for key, RR in (("block", None), ("block_with_R", R)):
+            kernel = lambda: ell_spmv.ell_block_spmv(pat.cols, A1, RR, x,
+                                                     pat.n_cols)
+            plain = lambda: ell_spmv.ell_block_spmv_plain(pat.cols, A1, RR,
+                                                          x, pat.n_cols)
+            parts = [(A1, b) for b in range(3)]
+            if RR is not None:
+                parts += [(RR[a, b], b) for a in range(3) for b in range(3)]
+            libs = [measure.library(measure.csr_library(pat, v), x[b])
+                    for v, b in parts]
+            calls = [c for c, _ in libs]
+            lib = ((lambda: [c() for c in calls]) if all(calls) else None,
+                   "; ".join(w for _, w in libs if w))
+            nbytes = measure.ell_block_bytes(A1, RR, 3, pat.n_cols)
+            t, why = yardsticks(kernel, plain, lib, nbytes,
+                                measure.ell_block_flops(A1, RR, 3),
+                                torch.float64)
+            nnz_bytes = measure.ell_block_nnz_bytes(pat, A1, RR, 3)
+            t["bound_nnz_ms"] = measure.bound(nnz_bytes, 0,
+                                              torch.float64)[0]
+            s3rec[key] = t
+            print(f"[step3d-kernels] {S3_HEADLINE} block product d = 3 "
+                  f"{'with' if RR is not None else 'without'} R: "
+                  f"{json.dumps(t)}; {len(parts)} cuSPARSE CSR products "
+                  f"{why or 'taken'}; {nbytes} B padded ELL, {nnz_bytes} B "
+                  f"entries alone (nnz {pat.nnz}, {pat.n_rows} x {pat.K})",
+                  flush=True)
+    del s3levels
+    done("step3d-kernels", t0)
+
+    # ---- 18. config 4 at level 3 (760,852 dofs) on the card ------------- #
+    t0 = time.perf_counter()
+    bsr_spmv.reset_launches()
+    ell_spmv.reset_launches()
+    step_s = []
+    last = [time.perf_counter()]
+
+    def lap(*_):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        step_s.append(now - last[0])
+        last[0] = now
+    r3 = s3.solve_fused(rtol=step3d.RTOL, rtol_lin=step3d.RTOL_LIN,
+                        max_steps=S3_STEPS, callback=lap)
+    torch.cuda.synchronize()
+    d18 = k3_counts()
+    peak = torch.cuda.max_memory_allocated()
+    div3 = step3d.divergence(s3, r3.w)
+    umax3 = float(r3.w[:s3.n_u].abs().max())
+    cap3 = s3.oseen.config.krylov.maxiter
+    print(f"[step3d] level {S3_LEVEL}, length {S3_LENGTH:g}, {s3.n} dofs: "
+          f"Picard steps {r3.linear_iters} (cap {cap3}); true rel res "
+          f"{r3.lin_rel}; |F| {r3.nonlinear_res}; seconds per step "
+          f"{step_s}; {r3.wall_time:.3f} s, "
+          f"{r3.wall_time / sum(r3.linear_iters) * 1e3:.2f} ms per FGMRES "
+          f"iteration; K3 f64 launches single {d18[0]}, block {d18[1]} "
+          f"({(d18[0] + d18[1]) / sum(r3.linear_iters):.1f} per FGMRES "
+          f"iteration), f32 {d18[2] + d18[3]}, BSR {d18[4]}; peak device "
+          f"memory {peak} B; max |D u| {div3}; max |u| {umax3}",
+          flush=True)
+    _require(max(r3.linear_iters) < cap3 and max(r3.lin_rel) <= 1e-8,
+             f"config 4: counts {r3.linear_iters}, true relative residuals "
+             f"{r3.lin_rel}")
+    _require(r3.nonlinear_res[-1] < r3.nonlinear_res[0],
+             f"config 4: |F| {r3.nonlinear_res}")
+    _require(d18[0] > 0 and d18[1] > 0 and d18[4] == 0,
+             f"config 4 launches (single, block, f32, f32 block, BSR) {d18}")
+    _require(r3.w.shape == (s3.n,) and bool(torch.isfinite(r3.w).all()),
+             "config 4: the state is not a finite vector of n dofs")
+    _require(div3 <= 1e-9 and umax3 <= 1.05,
+             f"config 4: max |D u| {div3}, max |u| {umax3}")
+    done("step3d", t0)
+
+    # ---- 19. config 4 reference: level 1 on the card vs the CPU --------- #
+    t0 = time.perf_counter()
+    res = {}
+    for where in (dev, torch.device("cpu")):
+        res[where.type] = step3d.build(1, device=where).solve_fused(
+            rtol=step3d.RTOL, rtol_lin=step3d.RTOL_LIN, max_steps=2)
+    g, c = res["cuda"], res["cpu"]
+    diff = rel_diff(g.w, c.w)
+    print(f"[step3d-reference] level 1, two Picard steps: iters cuda "
+          f"{g.linear_iters} cpu {c.linear_iters}; relative state difference "
+          f"{diff}", flush=True)
+    _require(g.linear_iters == c.linear_iters, f"config 4 level 1: counts "
+             f"differ: cuda {g.linear_iters}, cpu {c.linear_iters}")
+    _require(diff <= 1e-7, f"config 4 level 1: states differ by {diff}")
+    done("step3d-reference", t0)
+
+    # ---- 20. repeats are bit for bit equal on the card ------------------ #
+    t0 = time.perf_counter()
+    wind3 = r3.w[:s3.n_u]
+    a3 = s3.asm
+    same = {}
+    for name, fn in (
+            ("3D A1", lambda: a3.picard_matrix_values(wind3)),
+            ("3D Kp", lambda: a3.kp_values(wind3, surface=True)),
+            ("3D Newton R", lambda: a3.newton_reaction_values(wind3))):
+        same[name] = bool(torch.equal(fn(), fn()))
+    A1v, Rv = o3._operator_values(wind3)
+    vcycle = o3._velocity_solver(A1v, wind3, Rv)
+    v = torch.as_tensor(rng.standard_normal(s3.n_u), dtype=o3.dtype,
+                        device=dev)
+    same["3D V-cycle apply"] = bool(torch.equal(vcycle(v), vcycle(v)))
+    del s3, r3, wind3, vcycle, A1v, Rv
+    runs = [highre.build(1, highre.NU, device=dev, recycle=HR_RECYCLE
+                         ).solve_fused(rtol=highre.RTOL,
+                                       rtol_lin=highre.RTOL_LIN, max_steps=3,
+                                       damping=highre.DAMPING)
+            for _ in range(2)]
+    same["config 5 l1, 3 recycled Picard steps: states"] = bool(
+        torch.equal(runs[0].w, runs[1].w))
+    print(f"[determinism] {json.dumps(same)}; config 5 counts "
+          f"{[r.linear_iters for r in runs]}", flush=True)
+    _require(all(same.values()), f"a repeat differs on the card: {same}")
+    _require(runs[0].linear_iters == runs[1].linear_iters,
+             f"config 5 recycled counts differ: {runs[0].linear_iters}, "
+             f"{runs[1].linear_iters}")
+    done("determinism", t0)
+
     # ``launches``: counts of the paths' own runs, each read just after a
     # run that began with the counts at 0 (``paths`` splits them).  The ELL
     # paths are f64 throughout: each ELL record is its f64 instantiation with
@@ -989,6 +1206,8 @@ def main():
     cyl_paths = (f"cylinder l{CYL_LEVEL} 2D-1",
                  f"cylinder l{CYL_LEVEL} 2D-2 {CYL_STEPS} steps")
     hr_path = f"step l{HR_LEVEL} config 5, Re 2000 and 5000"
+    s3_path = (f"3D step l{S3_LEVEL} length {S3_LENGTH:g} config 4, "
+               f"{S3_STEPS} Picard steps")
     kernels_line = [{"name": f"bsr_spmv_{k}", "route": "cuda",
                      "source": SOURCE, "replaces": REPLACES[k],
                      "launches": timed[k], "path": "step l2 timed solve",
@@ -996,29 +1215,32 @@ def main():
     kernels_line.append({
         "name": "ell_spmv", "route": "cuda", "source": ELL_SOURCE,
         "replaces": ELL_REPLACES,
-        "launches": cavity_launches["ell_f64"] + d1[0] + d2[0] + d14[0],
+        "launches": cavity_launches["ell_f64"] + d1[0] + d2[0] + d14[0]
+        + d18[0],
         "paths": {f"cavity l{cavity.LEVEL} continuation":
                   cavity_launches["ell_f64"],
                   cyl_paths[0]: d1[0], cyl_paths[1]: d2[0],
-                  hr_path: d14[0]},
+                  hr_path: d14[0], s3_path: d18[0]},
         "dtype": "f64", **erec["f64"],
-        "cylinder": crec["f64"]["single"],
+        "cylinder": crec["f64"]["single"], "step3d": s3rec["single"],
         "f32": {"launches": cavity_launches["ell_f32"] + d1[2] + d2[2]
-                + d14[2],
+                + d14[2] + d18[2],
                 **erec["f32"], "cylinder": crec["f32"]["single"]}})
     kernels_line.append({
         "name": "ell_block_spmv", "route": "cuda", "source": ELL_SOURCE,
         "replaces": ELL_REPLACES,
         "launches": cavity_launches["ell_block_f64"] + d1[1] + d2[1]
-        + d14[1],
+        + d14[1] + d18[1],
         "paths": {f"cavity l{cavity.LEVEL} continuation":
                   cavity_launches["ell_block_f64"],
-                  cyl_paths[0]: d1[1], cyl_paths[1]: d2[1], hr_path: d14[1]},
+                  cyl_paths[0]: d1[1], cyl_paths[1]: d2[1], hr_path: d14[1],
+                  s3_path: d18[1]},
         "dtype": "f64", **brec["f64"],
         "cylinder": {k: v for k, v in crec["f64"].items() if k != "single"},
         "highre": hrec,
+        "step3d": {k: s3rec[k] for k in ("block", "block_with_R")},
         "f32": {"launches": cavity_launches["ell_block_f32"] + d1[3] + d2[3]
-                + d14[3],
+                + d14[3] + d18[3],
                 **brec["f32"],
                 "cylinder": {k: v for k, v in crec["f32"].items()
                              if k != "single"}}})

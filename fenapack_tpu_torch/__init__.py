@@ -1,14 +1,15 @@
 """fenapack_tpu_torch: the PyTorch and CUDA port of fenapack_tpu.
 
 PCD-preconditioned Navier-Stokes solvers on an NVIDIA GPU: host-side mesh
-and dofmap setup, static-sparsity Taylor-Hood assembly, ELL and block-sparse
-(BSR) operators applied by hand-written CUDA kernels, flexible GMRES around
-the upper Schur fieldsplit with PCD-BRM1/BRM2 (enclosed flow included),
-geometric multigrid and dense subsolves, Picard and Newton drivers (with
-Anderson mixing on the Picard full solve, damping on the others), GCRO-DR
-recycling across solves, SUPG streamline diffusion (system and
-preconditioner), theta-scheme and BDF2 time stepping, drag/lift
-functionals and the model entry points (``models``).  The JAX package
+and dofmap setup (triangles and tets), static-sparsity Taylor-Hood assembly
+summed in a fixed order, ELL and block-sparse (BSR) operators applied by
+hand-written CUDA kernels, flexible GMRES around the upper Schur
+fieldsplit with PCD-BRM1/BRM2 (enclosed flow included), geometric
+multigrid, dense and factorization-free subsolves, Picard and Newton
+drivers (with Anderson mixing on the Picard full solve, damping on the
+others), GCRO-DR recycling across solves, SUPG streamline diffusion
+(system and preconditioner), theta-scheme and BDF2 time stepping,
+drag/lift functionals and the model entry points (``models``).  The JAX package
 ``fenapack_tpu`` is the reference; the layout of this package mirrors it
 module by module.
 
@@ -21,6 +22,9 @@ from .fem.mesh import (TriMesh, rectangle_mesh, box_union_mesh,
                        obstacle_channel_mesh, cylinder_channel_mesh,
                        triangle_quality, snap_to_circle, refine_uniform, WALL,
                        INFLOW, OUTFLOW, CYLINDER)
+from .fem.mesh3d import (TetMesh, box_mesh, box_union_mesh3d,
+                         refine_uniform3d, backward_step_mesh3d,
+                         channel_mesh3d)
 from .fem.dofmap import TaylorHood, DirichletBC, merge_bcs
 from .fem.assemble import NSAssembler, ConstOperators
 from .ops.sparse import (ELL, BlockELL, SparsityPattern, BlockSparsityPattern,
@@ -49,6 +53,8 @@ __all__ = [
     "cavity_mesh", "channel_mesh", "obstacle_channel_mesh",
     "cylinder_channel_mesh", "triangle_quality", "snap_to_circle",
     "refine_uniform", "WALL", "INFLOW", "OUTFLOW", "CYLINDER",
+    "TetMesh", "box_mesh", "box_union_mesh3d", "refine_uniform3d",
+    "backward_step_mesh3d", "channel_mesh3d",
     "TaylorHood", "DirichletBC", "merge_bcs", "NSAssembler",
     "ConstOperators", "ELL", "BlockELL", "SparsityPattern",
     "BlockSparsityPattern", "pattern_from_dofmaps",

@@ -1,13 +1,14 @@
-"""Batched Taylor-Hood P2/P1 assembly on tensors (2D main-path subset).
+"""Batched Taylor-Hood P2/P1 assembly on tensors, triangles and tets.
 
 The port of ``fenapack_tpu/fem/assemble.py::NSAssembler``: per-cell element
-tensors are batched matrix products over quadrature points, scattered into
-static-sparsity operators with one ``index_add_`` per operator.  Constant
-operators (viscous Laplacian L, divergence D and gradient DT, pressure mass
-Mp and stiffness Ap) are assembled once; the wind-dependent ones (convection
-N(w), the Newton reaction blocks R_ab(w), pressure convection Kp with the
-BRM2 inflow surface term, the P1 streamline diffusion of the p-coarse
-multigrid level) are plain functions of the current velocity iterate.
+tensors are batched matrix products over quadrature points, summed into
+static-sparsity operators in a fixed order (``ops.sparse.SegmentSum``).
+Constant operators (viscous Laplacian L, divergence D and gradient DT,
+pressure mass Mp and stiffness Ap) are assembled once; the wind-dependent
+ones (convection N(w), the Newton reaction blocks R_ab(w), pressure
+convection Kp with the BRM2 inflow surface term, the P1 streamline
+diffusion of the p-coarse multigrid level) are plain functions of the
+current velocity iterate.
 
 Precision follows the JAX package: a wind of lower precision than the
 assembler is promoted before the element integrals, and ``compute32`` runs
@@ -16,15 +17,18 @@ the per-step convection integrals in f32 and casts the assembled values up.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import elements as el
+from . import elements3d as el3
 from .dofmap import TaylorHood
 from .mesh import INFLOW
-from ..ops.sparse import BlockSparsityPattern, pattern_from_dofmaps
+from ..ops.sparse import (BlockSparsityPattern, SegmentSum,
+                          pattern_from_dofmaps)
 
 
 @dataclasses.dataclass
@@ -46,7 +50,8 @@ class ConstOperators:
 
 
 class NSAssembler:
-    """Navier-Stokes / PCD operator assembly on one triangle mesh.
+    """Navier-Stokes / PCD operator assembly on one triangle or tet mesh
+    (3D callers pass ``quad_degree=4``, as the JAX package's do).
 
     ``block_size`` selects the block-sparse (BSR) layout with that tile
     size; ``block_dtype`` the storage dtype of the compute-precision block
@@ -54,13 +59,15 @@ class NSAssembler:
     (``const_hi``, the outer matvec and residual) in the same block layout
     instead of ELL.  ``p1_only`` builds the pressure space alone (pattern,
     Ap, Mp), as the pressure multigrid levels need.  Velocity layout:
-    ``u = [u_x (n2); u_y (n2)]``.  Dofs keep the mesh's natural order.
+    ``u = [u_x (n2); u_y (n2)]`` (and ``u_z`` in 3D).  Dofs keep the mesh's
+    natural order.
     """
 
     def __init__(self, mesh, nu: float, *, device, dtype=torch.float64,
                  quad_degree: int = 5, block_size: Optional[int] = None,
                  block_dtype=None, hi_block: bool = False,
                  p1_only: bool = False):
+        t0 = time.perf_counter()
         self.device = torch.device(device)
         self._p1_only = bool(p1_only)
         self.mesh = mesh
@@ -72,13 +79,18 @@ class NSAssembler:
         self.W = W = TaylorHood(mesh)
         self.n2, self.n1 = W.n2, W.n1
 
-        qp, qw = el.triangle_quadrature(quad_degree)
-        phi2, dphi2 = el.p2_basis(qp)
-        phi1, dphi1 = el.p1_basis(qp)
+        if d == 2:
+            qp, qw = el.triangle_quadrature(quad_degree)
+            phi2, dphi2 = el.p2_basis(qp)
+            phi1, dphi1 = el.p1_basis(qp)
+        else:
+            qp, qw = el3.tet_quadrature(quad_degree)
+            phi2, dphi2 = el3.p2_basis(qp)
+            phi1, dphi1 = el3.p1_basis(qp)
         self.nq = qp.shape[0]
         self.nb2, self.nb1 = phi2.shape[1], phi1.shape[1]
 
-        v = mesh.vertices[mesh.cells]                       # (nc, 3, 2)
+        v = mesh.vertices[mesh.cells]                       # (nc, d+1, d)
         J = np.stack([v[:, i + 1] - v[:, 0] for i in range(d)], axis=2)
         Jinv = np.linalg.inv(J)
         adet = np.abs(np.linalg.det(J))
@@ -87,7 +99,9 @@ class NSAssembler:
         self.nc = mesh.num_cells
         self._cd2_np = W.V.cell_dofs.astype(np.int64)
         self._cd1_np = W.Q.cell_dofs.astype(np.int64)
-        # cell diameters (longest edge), read by the streamline diffusion
+        # cell diameters, read by the streamline diffusion: the longest of
+        # |v_i - v_(i-1)| taken cyclically, as in the JAX package (every
+        # edge of a triangle; 4 of the 6 edges of a tet)
         h_cell = np.linalg.norm(v - np.roll(v, 1, axis=1), axis=2).max(axis=1)
 
         t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,
@@ -127,6 +141,7 @@ class NSAssembler:
         if not self._p1_only:
             self._flat = self._flat_tables()
             self._setup_facets()
+        t1 = time.perf_counter()
 
         if block_size:
             self.const_hi = self._assemble_constant(hi=True)
@@ -134,30 +149,49 @@ class NSAssembler:
                                                  out_dtype=block_dtype)
         else:
             self.const = self.const_hi = self._assemble_constant()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        # host clock: dofmaps, patterns and tables; the constant operators
+        self.setup_seconds = {"dofmaps and patterns": t1 - t0,
+                              "constant operators": time.perf_counter() - t1}
 
     # ------------------------------------------------------------------ #
     def _setup_facets(self):
         """INFLOW-facet quadrature tables for the BRM2 Kp surface term
         ``-(1/nu) (w.n) p q ds``: physical facet quadrature points mapped
-        back to reference coordinates in the owning cell."""
+        back to reference coordinates in the owning cell.  Facets are edges
+        (degree-4 Gauss rule) in 2D and triangles (the degree-4 triangle
+        rule, whose weights sum to 1/2, times twice the area) in 3D."""
         mesh = self.mesh
         sel = np.where(mesh.facet_markers == INFLOW)[0]
         self.n_inflow_facets = sel.shape[0]
         if not sel.shape[0]:
             return
-        fv = mesh.edges[mesh.boundary_facets[sel]]            # (nf, 2)
-        fcells = mesh.facet_cells[sel]
-        normals = mesh.facet_normals()[sel]
-        tq, wq = el.interval_quadrature(4)
-        bary = np.stack([1 - tq, tq], axis=1)                 # (ntq, 2)
-        a, b = mesh.vertices[fv[:, 0]], mesh.vertices[fv[:, 1]]
-        measure = np.linalg.norm(b - a, axis=1)
+        d = self.dim
+        if d == 2:
+            fv = mesh.edges[mesh.boundary_facets[sel]]        # (nf, 2)
+            fcells = mesh.facet_cells[sel]
+            normals = mesh.facet_normals()[sel]
+            tq, wq = el.interval_quadrature(4)
+            bary = np.stack([1 - tq, tq], axis=1)             # (ntq, 2)
+            a, b = mesh.vertices[fv[:, 0]], mesh.vertices[fv[:, 1]]
+            measure = np.linalg.norm(b - a, axis=1)
+            basis2, basis1 = el.p2_basis, el.p1_basis
+        else:
+            fv = mesh.boundary_faces[sel]                     # (nf, 3)
+            fcells = mesh.face_cells[sel]
+            normals = mesh.face_normals()[sel]
+            qp2, wq = el3.triangle_face_quadrature(4)
+            bary = np.concatenate([1 - qp2.sum(1, keepdims=True), qp2],
+                                  axis=1)                     # (ntq, 3)
+            measure = 2.0 * mesh.face_areas()[sel]
+            basis2, basis1 = el3.p2_basis, el3.p1_basis
         pts = np.einsum("qv,fvd->fqd", bary, mesh.vertices[fv])
         pref = np.einsum("fkd,fqd->fqk", self._Jinv_np[fcells],
                          pts - self._v0[fcells][:, None, :])
         nf, ntq = pref.shape[:2]
-        p2, _ = el.p2_basis(pref.reshape(-1, 2))
-        p1, _ = el.p1_basis(pref.reshape(-1, 2))
+        p2, _ = basis2(pref.reshape(-1, d))
+        p1, _ = basis1(pref.reshape(-1, d))
         t = lambda x: torch.as_tensor(x, dtype=self.dtype, device=self.device)
         self.f_phi2 = t(p2.reshape(nf, ntq, -1))
         self.f_phi1 = t(p1.reshape(nf, ntq, -1))
@@ -165,8 +199,11 @@ class NSAssembler:
         self.f_normals = t(normals)
         self.f_cd2 = torch.as_tensor(self._cd2_np[fcells], device=self.device)
         f_cd1 = self._cd1_np[fcells]
-        # surface entries land in the volume P1 pattern's slots
-        self.kp_surf_pos = self.pat_p1.entry_positions(f_cd1, f_cd1)
+        # surface entries land in the volume P1 pattern's slots, added to
+        # the volume values in a fixed order
+        self.kp_surf_sum = SegmentSum(
+            self.pat_p1.entry_positions(f_cd1, f_cd1),
+            self.pat_p1.value_size, device=self.device)
 
     def _pats(self, hi: bool):
         if hi:
@@ -374,9 +411,8 @@ class NSAssembler:
         elem_s = -torch.einsum("fq,fq,fql,fqm->flm", self.f_wlen.to(cdt), un,
                                self.f_phi1.to(cdt),
                                self.f_phi1.to(cdt)) / self.nu
-        flat = vals.reshape(-1).clone()
-        flat.index_add_(0, self.kp_surf_pos, elem_s.reshape(-1))
-        return flat.reshape(vals.shape)
+        return self.kp_surf_sum(elem_s, base=vals.reshape(-1)).reshape(
+            vals.shape)
 
     def supg_p1_values(self, u: torch.Tensor) -> torch.Tensor:
         """Streamline-diffusion values for the scalar P1

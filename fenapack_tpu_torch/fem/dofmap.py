@@ -1,11 +1,12 @@
-"""Function spaces, dofmaps and Dirichlet boundary conditions (2D, NumPy).
+"""Function spaces, dofmaps and Dirichlet boundary conditions (NumPy).
 
-The 2D part of ``fenapack_tpu/fem/dofmap.py``.  Velocity and pressure
+The port of ``fenapack_tpu/fem/dofmap.py``: P1/P2 on triangles and tets.  Velocity and pressure
 unknowns live in separate flat arrays, so field-split index sets are static
 slices; boundary conditions become masks and value arrays.
 
 Velocity layout: scalar P2 dofs are [vertex dofs | edge-midpoint dofs]; the
-vector-valued space stacks components: ``u = [u_x (n2); u_y (n2)]``.
+vector-valued space stacks components: ``u = [u_x (n2); u_y (n2)]`` (and
+``u_z`` in 3D).
 """
 from __future__ import annotations
 
@@ -76,6 +77,64 @@ class P2Space:
         return np.arange(self.mesh.num_vertices, dtype=np.int32)
 
 
+@dataclasses.dataclass
+class P1Space3D:
+    """Scalar continuous P1 on tets (pressure space of 3D Taylor-Hood)."""
+    mesh: object      # TetMesh
+
+    @property
+    def dim(self) -> int:
+        return self.mesh.num_vertices
+
+    @property
+    def cell_dofs(self) -> np.ndarray:       # (nc, 4)
+        return self.mesh.cells
+
+    def dof_coords(self) -> np.ndarray:
+        return self.mesh.vertices
+
+    def facet_dofs(self, markers: Sequence[int]) -> np.ndarray:
+        sel = np.isin(self.mesh.facet_markers, markers)
+        fv = self.mesh.boundary_faces[sel]
+        return np.unique(fv.ravel()).astype(np.int32)
+
+    def vertex_dofs(self) -> np.ndarray:
+        return np.arange(self.mesh.num_vertices, dtype=np.int32)
+
+
+@dataclasses.dataclass
+class P2Space3D:
+    """Scalar continuous P2 on tets (one velocity component)."""
+    mesh: object      # TetMesh
+
+    @property
+    def dim(self) -> int:
+        return self.mesh.num_vertices + self.mesh.num_edges
+
+    @property
+    def cell_dofs(self) -> np.ndarray:       # (nc, 10)
+        nv = self.mesh.num_vertices
+        return np.concatenate([self.mesh.cells, nv + self.mesh.cell_edges],
+                              axis=1)
+
+    def dof_coords(self) -> np.ndarray:
+        mids = 0.5 * (self.mesh.vertices[self.mesh.edges[:, 0]]
+                      + self.mesh.vertices[self.mesh.edges[:, 1]])
+        return np.concatenate([self.mesh.vertices, mids])
+
+    def facet_dofs(self, markers: Sequence[int]) -> np.ndarray:
+        """Vertices and edge midpoints of marked boundary faces."""
+        sel = np.isin(self.mesh.facet_markers, markers)
+        fv = self.mesh.boundary_faces[sel]
+        fe = self.mesh.face_edges[sel]
+        nv = self.mesh.num_vertices
+        return np.unique(np.concatenate([fv.ravel(), nv + fe.ravel()])
+                         ).astype(np.int32)
+
+    def vertex_dofs(self) -> np.ndarray:
+        return np.arange(self.mesh.num_vertices, dtype=np.int32)
+
+
 class ReorderedSpace:
     """A scalar space with relabeled dofs: ``rank[old_dof] = new_dof``.
 
@@ -129,18 +188,22 @@ def rcm_rank(cell_dofs: np.ndarray, ndof: int) -> np.ndarray:
 
 @dataclasses.dataclass
 class TaylorHood:
-    """Mixed P2^2 x P1 space on a triangle mesh: ``dim_u = 2 * n2``,
-    ``dim_p = n1``.  ``reorder`` relabels the velocity dofs by RCM and the
-    pressure dofs by the ordering it induces on the shared vertices."""
-    mesh: TriMesh
+    """Mixed P2^d x P1 space on a triangle (d = 2) or tet (d = 3) mesh:
+    ``dim_u = d * n2``, ``dim_p = n1``.  ``reorder`` relabels the velocity
+    dofs by RCM and the pressure dofs by the ordering it induces on the
+    shared vertices."""
+    mesh: object          # TriMesh or TetMesh
     reorder: bool = False
 
     def __post_init__(self):
         self.gdim = self.mesh.vertices.shape[1]
-        if self.gdim != 2:
-            raise ValueError("the port supports triangle meshes only")
-        self.V = P2Space(self.mesh)
-        self.Q = P1Space(self.mesh)
+        if self.gdim == 2:
+            self.V, self.Q = P2Space(self.mesh), P1Space(self.mesh)
+        elif self.gdim == 3:
+            self.V, self.Q = P2Space3D(self.mesh), P1Space3D(self.mesh)
+        else:
+            raise ValueError(f"no Taylor-Hood space in {self.gdim} "
+                             f"dimensions")
         if self.reorder:
             v_rank = rcm_rank(self.V.cell_dofs, self.V.dim)
             self.V = ReorderedSpace(self.V, v_rank)
@@ -177,7 +240,7 @@ class DirichletBC:
     @staticmethod
     def velocity(W: TaylorHood, markers: Sequence[int],
                  value: Callable[[np.ndarray], np.ndarray]) -> "DirichletBC":
-        """``value`` maps coords (n, 2) -> velocity (n, 2)."""
+        """``value`` maps coords (n, d) -> velocity (n, d)."""
         sdofs = W.V.facet_dofs(markers)
         coords = W.V.dof_coords()[sdofs]
         vals = np.asarray(value(coords), dtype=np.float64)

@@ -95,7 +95,7 @@ def main(argv=None):
     print("step,|F|,iters,lin_rel,seconds", flush=True)
     last = [time.perf_counter()]
 
-    def report(k, rn, iters, lin_rel):
+    def report(k, rn, iters, lin_rel, *_):
         if cuda:
             torch.cuda.synchronize()
         now = time.perf_counter()

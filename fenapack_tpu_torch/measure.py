@@ -105,6 +105,17 @@ def ell_block_bytes(A1: torch.Tensor, R, d: int, n_cols: int,
             + d * (n_cols + (2 if y0 else 1) * A1.shape[0]) * isz)
 
 
+def ell_block_nnz_bytes(pattern, A1: torch.Tensor, R, d: int) -> int:
+    """Bytes of the same block product in a layout without padding: the
+    pattern's own entries (an int32 column and each value plane once), x
+    and y; beside :func:`ell_block_bytes` it shows what the padding of the
+    ELL rows costs."""
+    isz = A1.element_size()
+    planes = 1 + (0 if R is None else d * d)
+    return (pattern.nnz * (4 + planes * isz)
+            + d * (pattern.n_cols + pattern.n_rows) * isz)
+
+
 def ell_block_flops(A1: torch.Tensor, R, d: int) -> int:
     """Operations of the ELL block product: every slot of A1 serves d
     components, every slot of R one (padding slots included, as in the

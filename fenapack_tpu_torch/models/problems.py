@@ -1,5 +1,5 @@
 """Canonical problem definitions, the port of
-``fenapack_tpu/models/problems.py`` (the 2D problems).
+``fenapack_tpu/models/problems.py``.
 
 Each problem is a small declarative class that builds the assembler,
 boundary conditions and (optionally multigrid-equipped) solver in one call:
@@ -14,8 +14,8 @@ Every problem exposes ``mesh()``, ``assembler()``, ``bcs(asm)`` and
 (``unsteady=dt`` returns a time stepper).  Operators are
 stored in the ELL layout in the problem's dtype, as the JAX models build
 them.  ``device`` defaults to ``"cuda"``: the entry points run on the card
-unless the caller asks for the CPU.  3D problems are not ported yet and
-raise.
+unless the caller asks for the CPU.  3D problems (tet meshes, 1:8
+refinement) assemble with quadrature degree 4, as the JAX models do.
 """
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..fem import mesh as meshmod
+from ..fem import mesh3d
 from ..fem.assemble import NSAssembler
 from ..fem.dofmap import DirichletBC
 from ..solvers import gmg
@@ -81,13 +82,12 @@ class _ProblemBase:
     def mesh(self, gmg_levels: Optional[int] = None):
         """The problem mesh (level ``level``), or with ``gmg_levels`` the
         multigrid hierarchy whose fine mesh it is."""
-        if self.dim != 2:
-            raise NotImplementedError("3D problems are not ported yet")
         snap = self.snap()
         if gmg_levels is None:
             m = self._base_mesh()
             for _ in range(self.level):
-                m = meshmod.refine_uniform(m)[0]
+                m = (meshmod.refine_uniform(m)[0] if m.vertices.shape[1] == 2
+                     else mesh3d.refine_uniform3d(m)[0])
                 if snap is not None:
                     snap(m)
             return m
@@ -97,6 +97,8 @@ class _ProblemBase:
     def assembler(self, mesh=None, **asm_kw):
         m = self.mesh() if mesh is None else mesh
         kw = dict(dtype=_DTYPES[self.dtype], device=self.device)
+        if self.dim == 3:
+            kw["quad_degree"] = 4
         kw.update(asm_kw)
         return NSAssembler(m, self.nu, **kw)
 
@@ -246,3 +248,34 @@ class CylinderChannel2D(_ProblemBase):
             v[:, 0] = 4.0 * u_m * x[:, 1] * (0.41 - x[:, 1]) / 0.41 ** 2
             return v
         return f
+
+
+@dataclasses.dataclass
+class StepFlow3D(_ProblemBase):
+    """3D backward-facing step (BASELINE config 4):
+    ``([-1,0]x[0,1] U [0,L]x[-1,1]) x [0,1]``, inflow ``16 y(1-y) z(1-z)``
+    (peak 1) at x = -1, outflow at x = L.  Entry point with the config's
+    settings: ``fenapack_tpu_torch.step3d``."""
+    dim: int = 3
+    nu: float = 0.05
+    length: float = 3.0
+
+    def _base_mesh(self):
+        return mesh3d.backward_step_mesh3d(0, length=self.length)
+
+    def inflow_profile(self):
+        def f(x):
+            v = np.zeros((x.shape[0], 3))
+            v[:, 0] = 16.0 * x[:, 1] * (1 - x[:, 1]) * x[:, 2] * (1 - x[:, 2])
+            return v
+        return f
+
+
+@dataclasses.dataclass
+class Duct3D(StepFlow3D):
+    """3D straight duct ``[0,L] x [0,1]^2`` (the 3D validation workload)."""
+    nu: float = 0.1
+    length: float = 2.0
+
+    def _base_mesh(self):
+        return mesh3d.channel_mesh3d(0, length=self.length)

@@ -70,7 +70,8 @@ def ell_spmv_plain(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
     """Plain PyTorch ELL product: gather x at the columns, then a sum over
     the slots (the formula of ``fenapack_tpu.ops.sparse.ELL.mv``).  ``x``
     is (n_cols,) or (n_cols, k)."""
-    g = x[cols.long()]
+    g = torch.index_select(x, 0, cols.reshape(-1)).view(
+        tuple(cols.shape) + tuple(x.shape[1:]))
     if x.dim() == 1:
         return torch.sum(vals * g, dim=1)
     return torch.einsum("nk,nkb->nb", vals, g)

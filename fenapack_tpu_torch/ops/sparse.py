@@ -1,8 +1,9 @@
 """Static-sparsity operators on tensors (``fenapack_tpu/ops/sparse.py``).
 
 The sparsity of every FEM operator is fixed by the mesh, so layouts are
-built once on the host (NumPy); assembling new values is one scatter-add of
-element values (``index_add_``).  Two layouts share one interface
+built once on the host (NumPy); assembling new values is one sum of scattered
+element values in a fixed order (:class:`SegmentSum`, the same bits on every
+run and on every device).  Two layouts share one interface
 (``pattern.matrix(vals) -> op`` with ``op.mv/with_vals/diag_from``):
 
   * :class:`SparsityPattern` / :class:`ELL`: per-row padded column lists
@@ -35,6 +36,60 @@ import torch
 
 from .bsr_spmv import bsr_spmv
 from .ell_spmv import ell_block_spmv, ell_spmv
+
+
+class SegmentSum:
+    """Scattered values summed in a fixed order: ``out[t] = base[t] +
+    src[i_1] + src[i_2] + ...`` over the entries ``i_1 < i_2 < ...`` with
+    ``index[i] == t``, added left to right.
+
+    That is the order in which ``index_add_`` adds on the CPU, so the result
+    is bit for bit ``base.clone().index_add_(0, index, src)`` there.  On
+    CUDA, ``index_add_`` adds duplicates with atomics in no fixed order, and
+    assembled values could differ in the last bits from one run to the
+    next; this sum takes the same order on every device.  Targets are
+    ordered by their number of entries, largest first, so the k-th entries
+    of all targets that have one are a prefix: a sum is ``max`` gathers and
+    in-place adds into that prefix, and one copy to the targets.  The host
+    tables hold one index per entry and none for padding.
+    """
+
+    def __init__(self, index: np.ndarray, size: int, *, device):
+        index = np.asarray(index, dtype=np.int64).ravel()
+        self.size = int(size)
+        counts = np.bincount(index, minlength=self.size)
+        order = np.argsort(index, kind="stable")
+        start = np.cumsum(counts) - counts
+        targets = np.flatnonzero(counts)
+        targets = targets[np.argsort(-counts[targets], kind="stable")]
+        mult = counts[targets]
+        # lengths[k]: targets with more than k entries (a prefix)
+        hist = np.bincount(mult, minlength=int(mult.max(initial=0)) + 1)
+        self.lengths = [int(n) for n in
+                        (mult.shape[0] - np.cumsum(hist))[:-1]]
+        idx = np.concatenate(
+            [order[start[targets[:n]] + k] for k, n in enumerate(self.lengths)]
+            or [np.zeros(0, np.int64)])
+        self.targets = torch.as_tensor(targets, device=device)
+        self.idx = torch.as_tensor(idx.astype(np.int32), device=device)
+
+    def __call__(self, src: torch.Tensor,
+                 base: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The sums over the flat ``src``, added to the flat ``base`` (of
+        ``size`` values) or to zeros."""
+        src = src.reshape(-1)
+        if base is None:
+            acc = torch.zeros(self.targets.shape[0], dtype=src.dtype,
+                              device=src.device)
+            out = torch.zeros(self.size, dtype=src.dtype, device=src.device)
+        else:
+            acc = base.index_select(0, self.targets)
+            out = base.clone()
+        pos = 0
+        for n in self.lengths:
+            acc[:n].add_(src.index_select(0, self.idx[pos:pos + n]))
+            pos += n
+        return out.index_copy_(0, self.targets, acc)
 
 
 class ELL:
@@ -109,10 +164,11 @@ class SparsityPattern:
     """Host-side scatter layout of one (test space x trial space) operator.
 
     Built once from the COO entry list of the cell dofmaps; provides
-    ``entry_pos`` (flat value position of every COO entry, so assembly is
-    ``zeros(size).index_add_(0, entry_pos, element_values)``), ``matrix``
-    and, for square operators, ``diag_pos``.  Index tensors live on
-    ``device``.
+    ``entry_pos`` (flat value position of every COO entry; assembly sums
+    the element values at these positions in entry order, as
+    ``zeros(size).index_add_(0, entry_pos, element_values)`` does on the
+    CPU: :class:`SegmentSum`), ``matrix`` and, for square operators,
+    ``diag_pos``.  Index tensors live on ``device``.
     """
 
     def __init__(self, rows: np.ndarray, cols: np.ndarray, n_rows: int,
@@ -137,10 +193,17 @@ class SparsityPattern:
 
     def _set_positions(self, entry_pos, diag_pos):
         self._entry_pos_np = np.asarray(entry_pos, dtype=np.int32)
-        self.entry_pos = torch.as_tensor(self._entry_pos_np, dtype=torch.int64,
-                                         device=self.device)
         self.diag_pos = (None if diag_pos is None else torch.as_tensor(
             np.asarray(diag_pos), dtype=torch.int64, device=self.device))
+        self._sum = SegmentSum(self._entry_pos_np, self.value_size,
+                               device=self.device)
+
+    @property
+    def entry_pos(self) -> torch.Tensor:
+        """The flat value position of every COO entry (int64, on the
+        pattern's device); assembly reads the sum tables instead."""
+        return torch.as_tensor(self._entry_pos_np, dtype=torch.int64,
+                               device=self.device)
 
     def _layout(self, urow, ucol):
         counts = np.bincount(urow, minlength=self.n_rows)
@@ -173,19 +236,16 @@ class SparsityPattern:
         return ELLBlock(self.cols, A1vals, Rvals, self.n_cols)
 
     def assemble_values(self, element_values: torch.Tensor) -> torch.Tensor:
-        """Scatter-add flat element-tensor values into a value array.  On
-        CUDA ``index_add_`` sums duplicates with atomics, in no fixed order:
-        assembled values may differ in the last bits from run to run."""
-        v = element_values.reshape(-1)
-        flat = torch.zeros(self.value_size, dtype=v.dtype, device=v.device)
-        flat.index_add_(0, self.entry_pos, v)
-        return flat.reshape(self.value_shape)
+        """Sum flat element-tensor values into a value array, each slot's
+        entries in entry order (:class:`SegmentSum`): the same bits on
+        every run and device."""
+        return self._sum(element_values).reshape(self.value_shape)
 
     def assemble(self, element_values: torch.Tensor):
         return self.matrix(self.assemble_values(element_values))
 
     def entry_positions(self, test_dofs: np.ndarray, trial_dofs: np.ndarray
-                        ) -> torch.Tensor:
+                        ) -> np.ndarray:
         """Flat value positions for extra COO entries (facet terms) whose
         (row, col) pairs are already in the pattern.  ``test_dofs`` (nf, a),
         ``trial_dofs`` (nf, b) -> positions (nf*a*b,) matching element
@@ -199,8 +259,7 @@ class SparsityPattern:
         idx, hits = searchsorted_i64(self._ukeys, keys)
         if hits != keys.shape[0]:
             raise ValueError("facet entries not contained in the pattern")
-        return torch.as_tensor(self._upos[idx], dtype=torch.int64,
-                               device=self.device)
+        return self._upos[idx]
 
     def to_dense(self, vals: torch.Tensor) -> torch.Tensor:
         """Dense (n_rows, n_cols) matrix from a value array.  Only the

@@ -2,9 +2,8 @@
 
 The subset of ``fenapack_tpu/solvers/config.py`` (plain dataclasses) that
 the port reads: every field here changes what a solve does.  The JAX
-package's other options (lumped and Chebyshev velocity subsolves,
-mixed-precision IR rounds, split assembly, ``hi_matvec``) come back with
-the code that ports them.
+package's other options (the lumped subsolve, mixed-precision IR rounds,
+split assembly, ``hi_matvec``) come back with the code that ports them.
 """
 from __future__ import annotations
 
@@ -25,8 +24,15 @@ class VelocityConfig(MultigridConfig):
     """The velocity-block subsolve.
 
     methods:
-      ``gmg`` — geometric multigrid V-cycles (needs a velocity hierarchy)
-      ``lu``  — exact dense inverse (validation scale)
+      ``gmg``       — geometric multigrid V-cycles (needs a velocity
+                      hierarchy)
+      ``lu``        — exact dense inverse (validation scale)
+      ``jacobi``    — ``iters`` damped-Jacobi sweeps (omega 0.7)
+      ``chebyshev`` — ``iters`` Jacobi-Chebyshev steps over ``bounds``
+                      (default (0.1, 2.0))
+      ``minres``    — ``iters // 4`` rounds of 4 minimal-residual steps
+    The last three are factorization-free, as the JAX package's 3D tests
+    and demo use them.
 
     smoothers of the multigrid levels:
       ``jacobi`` — damped Jacobi
@@ -35,6 +41,8 @@ class VelocityConfig(MultigridConfig):
     """
     method: str = "gmg"
     smoother: str = "jacobi"
+    iters: int = 10
+    bounds: Optional[Tuple[float, float]] = None
 
 
 @dataclasses.dataclass(frozen=True)

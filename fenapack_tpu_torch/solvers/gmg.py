@@ -28,9 +28,13 @@ minimal-residual smoothing and a dense explicit-inverse coarse solve.
     P2 streamline diffusion to every level but the fine one after that
     combination (the fine level is the caller's operator).
 
-With ``block_size`` the transfers are stored as BSR matrices and applied by
-the BSR SpMV kernel; without it they are gathers and scatter-adds.
-Dofs keep the natural order on every level.
+Triangle meshes refine 1:4 and tet meshes 1:8 (``fem.mesh3d``).  With
+``block_size`` the transfers are stored as BSR matrices and applied by the
+BSR SpMV kernel; without it prolongations are gathers and each restriction
+is the transposed prolongation stored as an ELL matrix and applied by the
+ELL SpMV kernel, whose rows sum in a fixed order (a scatter-add would sum
+in no fixed order on the card).  Dofs keep the natural order on every
+level.
 """
 from __future__ import annotations
 
@@ -40,11 +44,10 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..fem import elements, elements3d, mesh3d
 from ..fem import mesh as meshmod
-from ..fem.elements import p2_basis
-from ..fem.mesh import TriMesh
 from ..ops import subsolve
-from ..ops.sparse import ELL, BlockSparsityPattern
+from ..ops.sparse import ELL, BlockSparsityPattern, SparsityPattern
 from .config import MultigridConfig, VelocityConfig
 
 # Largest coarse system inverted densely (the JAX package's default
@@ -58,28 +61,31 @@ DENSE_MAX = 8192
 
 @dataclasses.dataclass
 class MeshHierarchy:
-    """Coarse-to-fine meshes from uniform refinement.  ``parents[l]`` maps
-    level-(l+1) vertices to their two level-l parent vertices (equal for
-    surviving coarse vertices)."""
-    meshes: List[TriMesh]
+    """Coarse-to-fine meshes (``TriMesh`` or ``TetMesh``) from uniform
+    refinement.  ``parents[l]`` maps level-(l+1) vertices to their two
+    level-l parent vertices (equal for surviving coarse vertices)."""
+    meshes: List[object]
     parents: List[np.ndarray]
 
     @property
-    def fine(self) -> TriMesh:
+    def fine(self):
         return self.meshes[-1]
 
 
-def build_hierarchy(coarse: TriMesh, levels: int,
+def build_hierarchy(coarse, levels: int,
                     snap: Optional[Callable] = None) -> MeshHierarchy:
-    """Refine ``coarse`` ``levels`` times; the finest mesh is the problem
-    mesh.  ``snap(mesh)``, if given, is applied to every refined mesh in
-    place (``mesh.snap_to_circle`` for the cylinder: new boundary vertices
-    go back onto the true geometry).  The P1 transfer keeps the (1/2, 1/2)
+    """Refine ``coarse`` ``levels`` times (1:4 for a triangle mesh, 1:8 for
+    a tet mesh); the finest mesh is the problem mesh.  ``snap(mesh)``, if
+    given, is applied to every refined mesh in place
+    (``mesh.snap_to_circle`` for the cylinder: new boundary vertices go
+    back onto the true geometry).  The P1 transfer keeps the (1/2, 1/2)
     parent stencil at snapped vertices; the P2 transfer takes its midpoint
     weights from the snapped coordinates."""
+    refine = (mesh3d.refine_uniform3d if coarse.vertices.shape[1] == 3
+              else meshmod.refine_uniform)
     meshes, parents = [coarse], []
     for _ in range(levels):
-        fine, par = meshmod.refine_uniform(meshes[-1])
+        fine, par = refine(meshes[-1])
         if snap is not None:
             snap(fine)
         meshes.append(fine)
@@ -93,6 +99,20 @@ def _block_transfer(rows, cols, vals, n_rows, n_cols, block, device):
     return pat.assemble(vals)
 
 
+def _ell_restriction(rows, cols, vals: np.ndarray, n_fine, n_coarse, dtype,
+                     device) -> ELL:
+    """The restriction, the transpose of the prolongation with entries
+    ``(rows, cols, vals)`` (fine row, coarse column), as an ELL matrix:
+    each coarse row sums its fine entries in column order, the same order
+    on every run.  Entries of weight exactly 0 (a coarse P2 function that
+    vanishes at a fine midpoint: about half of them in 3D) are left out."""
+    keep = vals != 0.0
+    pat = SparsityPattern(cols[keep], rows[keep], n_coarse, n_fine,
+                          device=device)
+    return pat.assemble(torch.as_tensor(vals[keep], dtype=dtype,
+                                        device=device))
+
+
 class P1Transfer:
     """Prolongation/restriction between two P1 levels from parent pairs."""
 
@@ -104,15 +124,18 @@ class P1Transfer:
         self.pa = torch.as_tensor(pa, device=device)
         self.pb = torch.as_tensor(pb, device=device)
         self.n_coarse, self.n_fine = n_coarse, nf
-        self._P = self._PT = None
+        self._P = None
+        rows = np.arange(nf, dtype=np.int64).repeat(2)
+        cols = np.stack([pa, pb], axis=1).ravel()
         if block_size:
-            rows = np.arange(nf, dtype=np.int64).repeat(2)
-            cols = np.stack([pa, pb], axis=1).ravel()
             vals = torch.full((2 * nf,), 0.5, dtype=dtype, device=device)
             self._P = _block_transfer(rows, cols, vals, nf, n_coarse,
                                       block_size, device)
             self._PT = _block_transfer(cols, rows, vals, n_coarse, nf,
                                        block_size, device)
+        else:
+            self._PT = _ell_restriction(rows, cols, np.full(2 * nf, 0.5),
+                                        nf, n_coarse, dtype, device)
 
     def prolong(self, xc: torch.Tensor) -> torch.Tensor:
         if self._P is not None:
@@ -120,11 +143,7 @@ class P1Transfer:
         return 0.5 * (xc[self.pa] + xc[self.pb])
 
     def restrict(self, rf: torch.Tensor) -> torch.Tensor:
-        if self._PT is not None:
-            return self._PT.mv(rf)
-        z = torch.zeros(self.n_coarse, dtype=rf.dtype, device=rf.device)
-        z.index_add_(0, self.pa, 0.5 * rf)
-        return z.index_add_(0, self.pb, 0.5 * rf)
+        return self._PT.mv(rf)
 
 
 # --------------------------------------------------------------------- #
@@ -313,31 +332,34 @@ def make_gmg_solver(hierarchy: PressureHierarchy, cfg: MultigridConfig,
 # --------------------------------------------------------------------- #
 
 class P2Transfer:
-    """P2 scalar-field transfer between a mesh and its refinement: the first
-    ``nv_f`` fine dofs (fine vertices) coincide with the coarse P2 dofs; each
-    fine edge midpoint is interpolated with the coarse P2 basis of its
-    parent cell (weights precomputed on the host)."""
+    """P2 scalar-field transfer between a mesh and its refinement (2D and
+    3D): the first ``nv_f`` fine dofs (fine vertices) coincide with the
+    coarse P2 dofs; each fine edge midpoint is interpolated with the coarse
+    P2 basis (6 functions on a triangle, 10 on a tet) of its parent cell
+    (weights precomputed on the host)."""
 
-    def __init__(self, coarse: TriMesh, fine: TriMesh, dtype, *, device,
+    def __init__(self, coarse, fine, dtype, *, device,
                  block_size: Optional[int] = None):
+        d = coarse.vertices.shape[1]
         nv_f, ne_f = fine.num_vertices, fine.num_edges
         self.n_coarse = coarse.num_vertices + coarse.num_edges
         if self.n_coarse != nv_f:
-            raise ValueError("fine mesh must be refine_uniform(coarse)")
+            raise ValueError("fine mesh must be the refinement of coarse")
         self.n_fine = nv_f + ne_f
-        # refinement emits the 4 children of each coarse cell in 4
-        # contiguous blocks of length nc_coarse
-        child_parent = np.tile(np.arange(coarse.num_cells, dtype=np.int64), 4)
+        # refinement emits the children of each coarse cell (4 on a
+        # triangle, 8 on a tet) in contiguous blocks of length nc_coarse
+        child_parent = np.tile(np.arange(coarse.num_cells, dtype=np.int64),
+                               4 if d == 2 else 8)
         fe_cell = np.full(ne_f, -1, dtype=np.int64)
         for k in range(fine.cell_edges.shape[1]):
             fe_cell[fine.cell_edges[:, k]] = np.arange(fine.num_cells)
         parent = child_parent[fe_cell]
         mids = 0.5 * (fine.vertices[fine.edges[:, 0]]
                       + fine.vertices[fine.edges[:, 1]])
-        v = coarse.vertices[coarse.cells[parent]]        # (ne_f, 3, 2)
-        J = np.stack([v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]], axis=2)
+        v = coarse.vertices[coarse.cells[parent]]        # (ne_f, d+1, d)
+        J = np.stack([v[:, i + 1] - v[:, 0] for i in range(d)], axis=2)
         ref = np.linalg.solve(J, (mids - v[:, 0])[..., None])[..., 0]
-        phi, _ = p2_basis(ref)                           # (ne_f, 6)
+        phi, _ = (elements if d == 2 else elements3d).p2_basis(ref)
         nb2 = phi.shape[1]
         cdofs = np.concatenate([coarse.cells[parent],
                                 coarse.num_vertices
@@ -345,20 +367,22 @@ class P2Transfer:
         self.mid_dofs = torch.as_tensor(cdofs.astype(np.int64),
                                         device=device)
         self.mid_w = torch.as_tensor(phi, dtype=dtype, device=device)
-        self._P = self._PT = None
+        self._P = None
+        rows = np.concatenate([np.arange(nv_f, dtype=np.int64),
+                               np.arange(nv_f, self.n_fine,
+                                         dtype=np.int64).repeat(nb2)])
+        cols = np.concatenate([np.arange(nv_f, dtype=np.int64),
+                               cdofs.astype(np.int64).ravel()])
+        vals = np.concatenate([np.ones(nv_f), phi.ravel()])
         if block_size:
-            rows = np.concatenate([np.arange(nv_f, dtype=np.int64),
-                                   np.arange(nv_f, self.n_fine,
-                                             dtype=np.int64).repeat(nb2)])
-            cols = np.concatenate([np.arange(nv_f, dtype=np.int64),
-                                   cdofs.astype(np.int64).ravel()])
-            vals = torch.as_tensor(
-                np.concatenate([np.ones(nv_f), phi.ravel()]), dtype=dtype,
-                device=device)
+            vals = torch.as_tensor(vals, dtype=dtype, device=device)
             self._P = _block_transfer(rows, cols, vals, self.n_fine,
                                       self.n_coarse, block_size, device)
             self._PT = _block_transfer(cols, rows, vals, self.n_coarse,
                                        self.n_fine, block_size, device)
+        else:
+            self._PT = _ell_restriction(rows, cols, vals, self.n_fine,
+                                        self.n_coarse, dtype, device)
 
     def prolong(self, xc: torch.Tensor) -> torch.Tensor:
         if self._P is not None:
@@ -367,11 +391,7 @@ class P2Transfer:
         return torch.cat([xc, mid])
 
     def restrict(self, rf: torch.Tensor) -> torch.Tensor:
-        if self._PT is not None:
-            return self._PT.mv(rf)
-        z = rf[:self.n_coarse].clone()
-        upd = self.mid_w * rf[self.n_coarse:, None]
-        return z.index_add_(0, self.mid_dofs.reshape(-1), upd.reshape(-1))
+        return self._PT.mv(rf)
 
     def inject(self, xf: torch.Tensor) -> torch.Tensor:
         """Fine P2 -> coarse P2 by point evaluation (for the wind)."""
@@ -417,7 +437,7 @@ class PCoarseTransfer:
     level 0) the P1 space is 4x smaller and brings back an exact bottom
     solve."""
 
-    def __init__(self, W, *, device):
+    def __init__(self, W, *, device, dtype=torch.float64):
         mesh = W.mesh
         nv = mesh.num_vertices
         self.n_coarse, self.n_fine = W.n1, W.n2
@@ -428,18 +448,20 @@ class PCoarseTransfer:
         IB = np.concatenate([v, mesh.edges[:, 1].astype(np.int64)])
         self._IA = torch.as_tensor(IA, device=device)
         self._IB = torch.as_tensor(IB, device=device)
+        self._PT = _ell_restriction(
+            np.arange(W.n2, dtype=np.int64).repeat(2),
+            np.stack([IA, IB], axis=1).ravel(), np.full(2 * W.n2, 0.5),
+            W.n2, W.n1, dtype, device)
 
     def prolong(self, xc: torch.Tensor) -> torch.Tensor:
         return 0.5 * (xc[self._IA] + xc[self._IB])
 
     def restrict(self, rf: torch.Tensor) -> torch.Tensor:
-        rw = 0.5 * rf
-        z = torch.zeros(self.n_coarse, dtype=rf.dtype, device=rf.device)
-        return z.index_add_(0, self._IA, rw).index_add_(0, self._IB, rw)
+        return self._PT.mv(rf)
 
 
 class _VectorTransfer:
-    """Lift a scalar transfer to the stacked [u_x; u_y] layout."""
+    """Lift a scalar transfer to the stacked [u_x; u_y[; u_z]] layout."""
 
     def __init__(self, t: P2Transfer, n2c: int, n2f: int, d: int = 2):
         self.t, self.n2c, self.n2f, self.d = t, n2c, n2f, d
@@ -486,6 +508,44 @@ def dense_velocity_block(pattern, A1vals: torch.Tensor,
                                       for b in range(d)], dim=1)
                            for a in range(d)], dim=0)
     return A
+
+
+def velocity_block_operator(pattern, A1vals: torch.Tensor,
+                            R: Optional[torch.Tensor], mask: torch.Tensor):
+    """``(mv, dinv)`` of the bc-masked velocity block over ``pattern``:
+    ``mv(x) = free A (free x) + mask x`` for the stacked d components (A1
+    on each diagonal block plus the Newton reaction blocks ``R[a, b]`` when
+    given) and the inverse of its diagonal (1 on the masked rows).  In the
+    ELL layout the block is one block product; in the BSR layout each
+    component is one single product with A1, plus one per reaction
+    block."""
+    n2 = pattern.n_rows
+    d = mask.shape[0] // n2
+    free = 1.0 - mask
+    A1 = pattern.matrix(A1vals)
+    Rm = (None if R is None else
+          [[pattern.matrix(R[a, b]) for b in range(d)] for a in range(d)])
+    if isinstance(A1, ELL):
+        blk = pattern.block_matrix(A1vals, R)
+
+        def block(xf):
+            return blk.mv(xf.view(d, n2)).view(-1)
+    else:
+        def block(xf):
+            comps = [xf[a * n2:(a + 1) * n2] for a in range(d)]
+            ys = [A1.mv(comps[a]) for a in range(d)]
+            if Rm is not None:
+                for a in range(d):
+                    for b in range(d):
+                        ys[a] = ys[a] + Rm[a][b].mv(comps[b])
+            return torch.cat(ys)
+
+    diag1 = A1.diag_from(pattern.diag_pos)
+    diag = torch.cat([diag1 if Rm is None else
+                      diag1 + Rm[a][a].diag_from(pattern.diag_pos)
+                      for a in range(d)])
+    diag = torch.where(mask > 0, torch.ones_like(diag), diag)
+    return (lambda x: free * block(free * x) + mask * x), 1.0 / diag
 
 
 def velocity_gmg_values(vh: VelocityHierarchy, wind_fine: torch.Tensor,
@@ -581,36 +641,10 @@ def make_velocity_gmg_from_values(vh: VelocityHierarchy,
     matvecs, dinvs, vtransfers = [], [], []
     for l, asm in enumerate(vh.asms):
         n2, mask_u = asm.n2, level_masks[l]
-        free = 1.0 - mask_u
-        A1v, Rv = vals["levels"][l]
-        A1 = asm.pat_p2.matrix(A1v)
-        R = (None if Rv is None else
-             [[asm.pat_p2.matrix(Rv[a, b]) for b in range(d)]
-              for a in range(d)])
-
-        if isinstance(A1, ELL):
-            def block(xf, blk=asm.pat_p2.block_matrix(A1v, Rv), n2=n2):
-                return blk.mv(xf.view(d, n2)).view(-1)
-        else:
-            def block(xf, A1=A1, R=R, n2=n2):
-                comps = [xf[a * n2:(a + 1) * n2] for a in range(d)]
-                ys = [A1.mv(comps[a]) for a in range(d)]
-                if R is not None:
-                    for a in range(d):
-                        for b in range(d):
-                            ys[a] = ys[a] + R[a][b].mv(comps[b])
-                return torch.cat(ys)
-
-        def mv(x, block=block, free=free, mask=mask_u):
-            return free * block(free * x) + mask * x
-
-        diag1 = A1.diag_from(asm.pat_p2.diag_pos)
-        diag = torch.cat([diag1 if R is None else
-                          diag1 + R[a][a].diag_from(asm.pat_p2.diag_pos)
-                          for a in range(d)])
-        diag = torch.where(mask_u > 0, torch.ones_like(diag), diag)
+        mv, dinv = velocity_block_operator(asm.pat_p2, *vals["levels"][l],
+                                           mask_u)
         matvecs.append(mv)
-        dinvs.append(1.0 / diag)
+        dinvs.append(dinv)
         if l > 0:
             vtransfers.append(_VectorTransfer(vh.transfers[l - 1],
                                               vh.asms[l - 1].n2, n2, d=d))
@@ -625,7 +659,8 @@ def make_velocity_gmg_from_values(vh: VelocityHierarchy,
         dinvs.insert(0, None)
         level_masks.insert(0, _pcoarse_mask(vh, d))
         vtransfers.insert(0, _VectorTransfer(
-            PCoarseTransfer(asm0.W, device=asm0.device), asm0.n1, asm0.n2,
+            PCoarseTransfer(asm0.W, device=asm0.device, dtype=vh.dtype),
+            asm0.n1, asm0.n2,
             d=d))
     if pcoarse or dense:
         Ainv = vals["coarse_inv"]

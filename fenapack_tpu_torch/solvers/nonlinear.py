@@ -170,8 +170,9 @@ class NonlinearSolver:
         the history's affine hull.  The (m-1)^2 normal equations are solved
         in the compute dtype, as in the JAX package.  With ``krylov.recycle
         > 0`` the GCRO-DR space of each solve deflates the next.
-        ``callback(k, rn, iters, lin_rel)`` is called after step k's solve
-        with that step's |F|, outer count and true relative residual."""
+        ``callback(k, rn, iters, lin_rel, w, rec)`` is called after step k
+        with that step's |F|, outer count and true relative residual, the
+        new state and the recycle space (None without recycling)."""
         ir = self.oseen.make_ir_solve(rtol_lin)
         m = int(anderson)
         fdt = self.oseen.dtype
@@ -201,8 +202,6 @@ class NonlinearSolver:
                 lin_rel.append(float(rn_lin) / max(lin.bnorm, 1e-300))
                 syncs += 1 + lin.host_syncs
                 iters.append(int(it))
-                if callback is not None:
-                    callback(k, rn, iters[-1], lin_rel[-1])
                 g = w + damping * x
                 if m >= 2:
                     Fh = torch.roll(Fh, -1, dims=0)
@@ -227,6 +226,8 @@ class NonlinearSolver:
                     gam = np.where(valid, gam, 0.0)
                     g = g - torch.as_tensor(gam, device=dev) @ dG
                 w = g
+                if callback is not None:
+                    callback(k, rn, iters[-1], lin_rel[-1], w, rec)
                 k += 1
             return FullSolveResult(w=w, steps=k, iters=iters, res=res,
                                    converged=converged, lin_rel=lin_rel,

@@ -4,7 +4,8 @@ The port of ``fenapack_tpu/solvers/oseen.py::OseenSolver``: Picard or
 Newton linearization (the Newton operator adds the reaction blocks R_ab to
 the velocity block), PCD Dirichlet rows or enclosed flow (constant pressure
 nullspace), Ap by pressure multigrid, Chebyshev or dense LU, Mp by
-Chebyshev, the velocity block by multigrid or dense LU.  ``theta`` and
+Chebyshev, the velocity block by multigrid, dense LU or a fixed number of
+Jacobi, Chebyshev or minimal-residual sweeps.  ``theta`` and
 ``inv_dt`` turn the operator into the unsteady schemes' effective one,
 ``theta A1 + inv_dt M`` with ``theta R``, in the system matvec, the velocity
 multigrid and the PCD apply (``Mp/dt`` in Fp).  SUPG streamline diffusion
@@ -16,7 +17,7 @@ dtype to ``krylov.rtol``, and the single-round high-precision solve of
 with the f64 system matvec around a preconditioner in the compute dtype,
 with GCRO-DR recycling across solves under ``krylov.recycle``.
 
-Monolithic vector layout: ``x = [u_x (n2); u_y (n2); p (n1)]``.
+Monolithic vector layout: ``x = [u_x (n2); u_y (n2)[; u_z (n2)]; p (n1)]``.
 """
 from __future__ import annotations
 
@@ -238,8 +239,9 @@ class OseenSolver:
 
     def _velocity_solver(self, A1vals: torch.Tensor, wind: torch.Tensor,
                          R: Optional[torch.Tensor] = None):
-        """Velocity-block subsolve at the current wind: multigrid, or the
-        dense inverse of the bc-masked block (``velocity.method`` "lu")."""
+        """Velocity-block subsolve at the current wind: multigrid, the
+        dense inverse of the bc-masked block ("lu"), or a fixed number of
+        factorization-free sweeps ("jacobi", "chebyshev", "minres")."""
         cfg = self.config.velocity
         if cfg.method == "lu":
             from .gmg import dense_velocity_block
@@ -247,6 +249,31 @@ class OseenSolver:
             free = self.free_u
             A = free[:, None] * A * free[None, :] + torch.diag(self.bc_mask_u)
             return subsolve.dense_lu_solver(A)
+        if cfg.method in ("jacobi", "chebyshev", "minres"):
+            from .gmg import velocity_block_operator
+            mv, dinv = velocity_block_operator(self.asm.pat_p2, A1vals, R,
+                                               self.bc_mask_u)
+            iters = cfg.iters
+            if cfg.method == "jacobi":
+                omega = 0.7
+
+                def solve(b):
+                    x = omega * dinv * b
+                    for _ in range(iters - 1):
+                        x = x + omega * dinv * (b - mv(x))
+                    return x
+                return solve
+            if cfg.method == "minres":
+                from .gmg import _minres_smooth
+
+                def solve(b):
+                    x = torch.zeros_like(b)
+                    for _ in range(max(1, iters // 4)):
+                        x = _minres_smooth(mv, dinv, 4, b, x)
+                    return x
+                return solve
+            lmin, lmax = cfg.bounds or (0.1, 2.0)
+            return subsolve.chebyshev_solver(mv, dinv, lmin, lmax, iters)
         if cfg.method == "gmg":
             from .gmg import make_velocity_gmg_from_wind
             return make_velocity_gmg_from_wind(

@@ -5,6 +5,7 @@ kernel stays above its bound.
     python -m fenapack_tpu_torch.trace --problem step [--level 2]
     python -m fenapack_tpu_torch.trace --problem cylinder [--steps 2]
     python -m fenapack_tpu_torch.trace --problem highre [--steps 2]
+    python -m fenapack_tpu_torch.trace --problem step3d [--level 3]
 
 ``cavity``: the slice's Re-100 solver (``fenapack_tpu_torch.cavity``), its
 first ``--steps`` Newton steps.  ``step``: the step benchmark's full solve
@@ -13,7 +14,9 @@ first ``--steps`` Newton steps.  ``step``: the step benchmark's full solve
 steps from the impulsive start; ``cylinder-2d1``: the first ``--steps``
 Newton steps of DFG 2D-1.  ``highre``: BASELINE config 5 at Re 2000
 (``fenapack_tpu_torch.highre``, level 2), its first ``--steps`` damped
-Picard steps on the stabilized system.  The solve runs once as a warm-up, once
+Picard steps on the stabilized system.  ``step3d``: BASELINE config 4
+(``fenapack_tpu_torch.step3d``, level 3, length 3: 760,852 dofs), its
+first ``--steps`` Picard steps.  The solve runs once as a warm-up, once
 unprofiled (wall time, peak device memory) and once under
 ``torch.profiler``, and one JSON line is printed: the FGMRES iterations,
 the wall time with and without the profiler, the device busy time (the sum
@@ -39,7 +42,7 @@ import time
 
 import torch
 
-from . import bench, cavity, cylinder, highre, measure
+from . import bench, cavity, cylinder, highre, measure, step3d
 from .ops import sparse
 
 # the kernels' device events, e.g.
@@ -143,6 +146,12 @@ def _solver(problem: str, level: int, steps: int, dev):
                                        max_steps=steps,
                                        damping=highre.DAMPING),
                 lambda r: r.linear_iters, nl.n)
+    if problem == "step3d":
+        nl = step3d.build(level, device=dev)
+        return (lambda: nl.solve_fused(rtol=step3d.RTOL,
+                                       rtol_lin=step3d.RTOL_LIN,
+                                       max_steps=steps),
+                lambda r: r.linear_iters, nl.n)
     if problem == "cylinder-2d1":
         nl = cylinder.build(level, 20, device=dev)
         return (lambda: nl.solve(rtol=cylinder.RTOL, max_steps=steps),
@@ -160,7 +169,7 @@ def run(problem: str = "cavity", level: int = None, steps: int = 2) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("the trace measures a CUDA device")
     if level is None:
-        level = cavity.LEVEL if problem == "cavity" else 2
+        level = {"cavity": cavity.LEVEL, "step3d": 3}.get(problem, 2)
     dev = torch.device("cuda")
     solve, iters_of, dofs = _solver(problem, level, steps, dev)
     solve()                                             # warm-up
@@ -227,13 +236,15 @@ def run(problem: str = "cavity", level: int = None, steps: int = 2) -> dict:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--problem", choices=("cavity", "step", "cylinder",
-                                          "cylinder-2d1", "highre"),
+                                          "cylinder-2d1", "highre",
+                                          "step3d"),
                     default="cavity")
     ap.add_argument("--level", type=int, default=None)
     ap.add_argument("--steps", type=int, default=2,
                     help="Newton steps of the cavity and of cylinder-2d1, "
                          "BDF2 steps of the cylinder, damped Picard steps "
-                         "of highre (the step runs its full solve)")
+                         "of highre and step3d (the step runs its full "
+                         "solve)")
     args = ap.parse_args(argv)
     print(json.dumps(run(args.problem, args.level, args.steps)), flush=True)
 

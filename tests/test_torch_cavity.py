@@ -80,8 +80,10 @@ def test_model_entry_points_default_to_the_card():
     assert p.pcd_marker_for("BRM1") == tmesh.INFLOW
     from fenapack_tpu_torch.solvers.unsteady import UnsteadySolver
     assert isinstance(p.solver("BRM2", unsteady=0.1), UnsteadySolver)
-    with pytest.raises(NotImplementedError):
-        LidDrivenCavity(dim=3, device="cpu").mesh()
+    # the 3D problems are ported: tet meshes, on the card by default
+    from fenapack_tpu_torch.models import Duct3D, StepFlow3D
+    assert StepFlow3D().device == "cuda" and Duct3D().device == "cuda"
+    assert Duct3D(level=0, device="cpu").mesh().vertices.shape[1] == 3
 
 
 def test_model_solver_configuration():

@@ -357,10 +357,12 @@ def test_config_carries_only_what_the_port_reads():
     assert (cfg.krylov.maxiter, cfg.velocity.smooth_iters,
             cfg.velocity.cycles) == (bench.MAXITER, 3, 2)
     for key in ("krylov.split_assembly", "krylov.hi_krylov",
-                "velocity.iters", "pcd.ap.smoother", "krylov.hi_matvec"):
+                "pcd.ap.smoother", "krylov.hi_matvec"):
         with pytest.raises((TypeError, AttributeError)):
             overrides(SolverConfig(), {key: 1})
-    # SUPG and GCRO-DR are carried since they were ported
+    # SUPG, GCRO-DR and the factorization-free velocity sweeps are carried
+    # since they were ported
     c = overrides(SolverConfig(), {"krylov.recycle": 8, "system_supg": True,
-                                   "jpc_supg": True})
-    assert (c.krylov.recycle, c.system_supg, c.jpc_supg) == (8, True, True)
+                                   "jpc_supg": True, "velocity.iters": 30})
+    assert (c.krylov.recycle, c.system_supg, c.jpc_supg,
+            c.velocity.iters) == (8, True, True, 30)
