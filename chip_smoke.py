@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's five paths on the card (the step benchmark, the
+Drives the port's six paths on the card (the step benchmark, the
 lid-driven cavity, the DFG cylinder, the SUPG-stabilized step at high
-Reynolds number, the 3D backward-facing step), in phases that each print
-one or more lines:
+Reynolds number, the 3D backward-facing step, the custom-form API), in
+phases that each print one or more lines:
 
   1. device  - require CUDA; print ``nvidia-smi`` name and power limit.
   2. build   - compile every kernel library from csrc/ (one nvcc per source,
@@ -116,6 +116,28 @@ one or more lines:
                vector, and three recycled (16) damped Picard steps of config
                5 at level 1 (the states).
 
+ 21. custom-forms - the custom-form API (``custom_forms.build(2)``: the
+               step at level 2, 25,987 dofs, written as mini-UFL forms,
+               PCDAssembler / PCDKrylovSolver / PCDNewtonSolver, BRM2 with
+               dense velocity and Ap inverses and Chebyshev-4 Mp) to 1e-5:
+               one line per Picard step (|F|, count, true relative
+               residual, seconds, dense-inverse seconds); asserts 9 or 10
+               steps, every solve at <= 1e-8, a total <= 1.1 x the oracle's
+               271, K3 single launches > 0 and no other kernel; prints the
+               peak device memory.
+ 22. custom-kernels - K3 against the plain version on the path's blocks at
+               the converged state (the vector uu block, 23,042 x 38, and
+               up, pu, Kp; f64, 1e-13); for uu the times of the kernel, the
+               plain version and a cuSPARSE CSR product beside the bound.
+ 23. custom-determinism - two assemblies of J, Kp and the residual at that
+               state, bit for bit equal.
+ 24. custom-reference - level 1, BRM1 with the fp form and with gp, three
+               Picard steps on the card and on the CPU: equal counts,
+               states within 1e-8.
+ 25. custom-3d - the 3D step at level 1: the custom Mp, Ap, Kp with the
+               inflow face term and the uu block against the factored 3D
+               assembler (1e-12).
+
 Then one JSON line with the kernels' records, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit, no
 result line).  Imports nothing of JAX.
@@ -163,6 +185,11 @@ CYL_RECYCLE = 8
 # through ``python -m fenapack_tpu_torch.step3d -l 3 --length 9``)
 S3_LEVEL, S3_LENGTH, S3_STEPS = 3, 3.0, 2
 S3_HEADLINE = f"A1 velocity level {S3_LEVEL}"
+# the custom-form API at the step benchmark's mesh: the scipy oracle's
+# total at level 2 (tests/golden_counts.json, step2d/l2/BRM2/picard) and a
+# cap of 1.1 times it; K3 against its plain version on the path's blocks
+CF_LEVEL, CF_ORACLE, CF_K3_TOL, CF_REF_STEPS = 2, 271, 1e-13, 3
+CF_CAP = int(1.1 * CF_ORACLE)
 PTXAS = re.compile(r"Compiling entry function '(\w+)'|(\d+) bytes spill "
                    r"stores, (\d+) bytes spill loads|Used (\d+) registers")
 
@@ -223,11 +250,11 @@ def main():
     print(f"[device] {torch.cuda.get_device_name(0)}; torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
-    from fenapack_tpu_torch import (backward_step_mesh, bench, cavity,
-                                    cavity_mesh, cylinder,
-                                    cylinder_channel_mesh, highre, measure,
-                                    snap_to_circle, step3d)
-    from fenapack_tpu_torch.models import ObstacleChannel2D
+    from fenapack_tpu_torch import (INFLOW, backward_step_mesh, bench,
+                                    cavity, cavity_mesh, custom_forms,
+                                    cylinder, cylinder_channel_mesh, forms,
+                                    highre, measure, snap_to_circle, step3d)
+    from fenapack_tpu_torch.models import ObstacleChannel2D, StepFlow3D
     from fenapack_tpu_torch.ops import bsr_spmv, ell_spmv, kernels
     from fenapack_tpu_torch.solvers import gmg
 
@@ -1197,6 +1224,162 @@ def main():
              f"{runs[1].linear_iters}")
     done("determinism", t0)
 
+    # ---- 21. the custom-form API at step level 2 on the card ---------- #
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    cs = custom_forms.build(CF_LEVEL, variant="BRM2", device=dev)
+    torch.cuda.synchronize()
+    cf_setup = time.perf_counter() - t0
+    print(f"[custom-forms] step level {CF_LEVEL}, {cs.n} dofs, BRM2 with "
+          f"dense velocity and Ap inverses, Chebyshev-4 Mp: setup "
+          f"{cf_setup:.3f} s; step,|F|,iters,lin_rel,seconds,"
+          f"inverse_seconds:", flush=True)
+    bsr_spmv.reset_launches()        # ``run`` sets the K3 counts to 0
+    cf = custom_forms.run(cs, rtol=custom_forms.RTOL,
+                          out=lambda l: print(f"[custom-forms] {l}",
+                                              flush=True))
+    d21 = k3_counts()
+    xcf = cf["x"]
+    cf_total = sum(cf["iters"])
+    print(f"[custom-forms] Picard steps {len(cf['iters'])} iters "
+          f"{cf['iters']} total {cf_total} (oracle {CF_ORACLE}, cap "
+          f"{CF_CAP}); converged {cf['converged']}; true rel res "
+          f"{cf['lin_rel']}; |F| {cf['nonlinear_res']}; seconds per step "
+          f"{cf['seconds']}; dense velocity inverse ({cs.n_u}^2 f64) "
+          f"seconds {cf['inverse_seconds']}; peak device memory "
+          f"{cf['peak_bytes']} B ({cf['start_bytes']} B allocated at the "
+          f"start); {cf['wall']:.3f} s; K3 f64 launches "
+          f"single {d21[0]}, block {d21[1]}, f32 {d21[2] + d21[3]}, BSR "
+          f"{d21[4]}", flush=True)
+    _require(cf["converged"] and len(cf["iters"]) in (9, 10),
+             f"custom forms level {CF_LEVEL}: converged {cf['converged']} "
+             f"in {len(cf['iters'])} steps")
+    _require(max(cf["lin_rel"]) <= 1e-8, f"custom forms: true relative "
+             f"residuals {cf['lin_rel']}")
+    _require(cf_total <= CF_CAP, f"custom forms: {cf_total} iterations > "
+             f"{CF_CAP}")
+    _require(d21[0] > 0 and d21[1] + d21[2] + d21[3] + d21[4] == 0,
+             f"custom forms launches (single, block, f32, f32 block, BSR) "
+             f"{d21}")
+    _require(xcf.shape == (cs.n,) and bool(torch.isfinite(xcf).all()),
+             "custom forms: the state is not a finite vector of n dofs")
+    done("custom-forms", t0)
+
+    # ---- 22. K3 on the custom path's blocks against the plain version -- #
+    t0 = time.perf_counter()
+    casm = cs.asm
+    coeffs = casm._coeffs(xcf)
+    cfrec = {}
+    for name, test, trial, vals in (
+            ("uu", "u", "u", casm.fc.assemble_block(casm._a, "u", "u",
+                                                    coeffs=coeffs)),
+            ("up", "u", "p", casm.fc.assemble_block(casm._a, "u", "p",
+                                                    coeffs=coeffs)),
+            ("pu", "p", "u", casm.fc.assemble_block(casm._a, "p", "u",
+                                                    coeffs=coeffs)),
+            ("kp", "p", "p", casm.kp(xcf))):
+        pat = casm.fc.pattern(test, trial)
+        x = torch.as_tensor(rng.standard_normal(pat.n_cols),
+                            dtype=torch.float64, device=dev)
+        abs_err, rel = rel_err(
+            ell_spmv.ell_spmv(pat.cols, vals, x, pat.n_cols),
+            ell_spmv.ell_spmv_plain(pat.cols, vals, x, pat.n_cols))
+        erec["f64"]["max_abs_err"] = max(erec["f64"]["max_abs_err"], abs_err)
+        line = (f"[custom-kernels] {name} f64 ELL {tuple(vals.shape)} "
+                f"(nnz {pat.nnz}): max rel err {rel} (tol {CF_K3_TOL})")
+        if name == "uu":
+            kernel = lambda: ell_spmv.ell_spmv(pat.cols, vals, x, pat.n_cols)
+            plain = lambda: ell_spmv.ell_spmv_plain(pat.cols, vals, x,
+                                                    pat.n_cols)
+            lib = measure.library(measure.csr_library(pat, vals), x)
+            nbytes = measure.ell_bytes(vals, pat.n_cols)
+            cfrec, why = yardsticks(kernel, plain, lib, nbytes, 2 * pat.nnz,
+                                    torch.float64)
+            line += (f"; {json.dumps(cfrec)}; cuSPARSE CSR {why or 'taken'}"
+                     f"; {nbytes} B")
+        print(line, flush=True)
+        _require(rel <= CF_K3_TOL, f"custom {name}: kernel disagrees with "
+                 f"plain ({rel} > {CF_K3_TOL})")
+    done("custom-kernels", t0)
+
+    # ---- 23. repeated custom-form assemblies are bit for bit equal ----- #
+    t0 = time.perf_counter()
+    same = {}
+    for name, fn in (("J", lambda: casm.system_matrix(xcf)),
+                     ("kp", lambda: {"kp": casm.kp(xcf)}),
+                     ("residual", lambda: {"F": casm.rhs_vector(xcf)})):
+        a, b = fn(), fn()
+        same[name] = all(torch.equal(a[k], b[k]) for k in a)
+    print(f"[custom-determinism] level {CF_LEVEL}, two assemblies at the "
+          f"converged state: {json.dumps(same)}", flush=True)
+    _require(all(same.values()), f"a custom assembly differs: {same}")
+    del cs, casm, coeffs, xcf
+    done("custom-determinism", t0)
+
+    # ---- 24. custom forms at level 1: the card against the CPU --------- #
+    t0 = time.perf_counter()
+    for label, kw in (("BRM1 fp form", dict(use_fp=True)),
+                      ("BRM1 gp form", dict(gp_scale=1.0))):
+        res = {}
+        for where in (dev, torch.device("cpu")):
+            res[where.type] = custom_forms.run(
+                custom_forms.build(1, variant="BRM1", device=where, **kw),
+                max_steps=CF_REF_STEPS)
+        g, c = res["cuda"], res["cpu"]
+        diff = rel_diff(g["x"], c["x"])
+        print(f"[custom-reference] level 1, {label}, {CF_REF_STEPS} Picard "
+              f"steps: iters cuda {g['iters']} cpu {c['iters']}; true rel "
+              f"res cuda {g['lin_rel']}; relative state difference {diff}",
+              flush=True)
+        _require(g["iters"] == c["iters"], f"custom level 1 {label}: counts "
+                 f"differ: cuda {g['iters']}, cpu {c['iters']}")
+        _require(diff <= 1e-8, f"custom level 1 {label}: states differ by "
+                 f"{diff}")
+    done("custom-reference", t0)
+
+    # ---- 25. 3D custom forms against the factored 3D assembler --------- #
+    t0 = time.perf_counter()
+    a3 = StepFlow3D(level=1, device=str(dev)).assembler()
+    fc3 = forms.FormCompiler(a3.W, quad_degree=4, device=dev)
+    w3 = torch.as_tensor(rng.standard_normal(a3.W.dim), dtype=torch.float64,
+                         device=dev)
+    (u, p), (v, q) = forms.TrialFunctions(a3.W), forms.TestFunctions(a3.W)
+    wc = forms.Coefficient(a3.W, "w")
+    u_, _ = forms.split(wc)
+    nrm = forms.FacetNormal(a3.mesh)
+    nu3 = a3.nu
+    checks = (
+        ("Mp", (1.0 / nu3) * p * q * forms.dx, a3.const.Mp.vals),
+        ("Ap", forms.inner(forms.grad(p), forms.grad(q)) * forms.dx,
+         a3.const.Ap.vals),
+        ("Kp with the face term",
+         (1.0 / nu3) * forms.dot(forms.grad(p), u_) * q * forms.dx
+         - (1.0 / nu3) * forms.dot(u_, nrm) * p * q * forms.ds(INFLOW),
+         a3.kp_values(w3[:a3.W.dim_u], surface=True)))
+    rels = {}
+    for name, form, ref in checks:
+        got = fc3.assemble_block(form, "p", "p", coeffs={"w": w3})
+        rels[name] = rel_err(fc3.pattern("p", "p").to_dense(got),
+                             a3.pat_p1.to_dense(ref))[1]
+    J3 = (nu3 * forms.inner(forms.grad(u), forms.grad(v)) * forms.dx
+          + forms.inner(forms.dot(forms.grad(u), u_), v) * forms.dx)
+    uu = fc3.pattern("u", "u").to_dense(
+        fc3.assemble_block(J3, "u", "u", coeffs={"w": w3}))
+    A1 = a3.pat_p2.to_dense(a3.picard_matrix_values(w3[:a3.W.dim_u]))
+    n2 = a3.n2
+    ref = torch.zeros_like(uu)
+    for c in range(3):
+        ref[c * n2:(c + 1) * n2, c * n2:(c + 1) * n2] = A1
+    rels["uu"] = rel_err(uu, ref)[1]
+    print(f"[custom-3d] 3D step level 1 ({a3.W.dim} dofs, "
+          f"{a3.mesh.num_cells} tets, {a3.n_inflow_facets} inflow faces): "
+          f"max rel err against the factored assembler {json.dumps(rels)} "
+          f"(tol {F64_TOL})", flush=True)
+    _require(max(rels.values()) <= F64_TOL, f"3D custom forms differ from "
+             f"the factored assembler: {rels}")
+    del uu, A1, ref
+    done("custom-3d", t0)
+
     # ``launches``: counts of the paths' own runs, each read just after a
     # run that began with the counts at 0 (``paths`` splits them).  The ELL
     # paths are f64 throughout: each ELL record is its f64 instantiation with
@@ -1208,6 +1391,7 @@ def main():
     hr_path = f"step l{HR_LEVEL} config 5, Re 2000 and 5000"
     s3_path = (f"3D step l{S3_LEVEL} length {S3_LENGTH:g} config 4, "
                f"{S3_STEPS} Picard steps")
+    cf_path = f"custom forms step l{CF_LEVEL} BRM2"
     kernels_line = [{"name": f"bsr_spmv_{k}", "route": "cuda",
                      "source": SOURCE, "replaces": REPLACES[k],
                      "launches": timed[k], "path": "step l2 timed solve",
@@ -1216,15 +1400,16 @@ def main():
         "name": "ell_spmv", "route": "cuda", "source": ELL_SOURCE,
         "replaces": ELL_REPLACES,
         "launches": cavity_launches["ell_f64"] + d1[0] + d2[0] + d14[0]
-        + d18[0],
+        + d18[0] + d21[0],
         "paths": {f"cavity l{cavity.LEVEL} continuation":
                   cavity_launches["ell_f64"],
                   cyl_paths[0]: d1[0], cyl_paths[1]: d2[0],
-                  hr_path: d14[0], s3_path: d18[0]},
+                  hr_path: d14[0], s3_path: d18[0], cf_path: d21[0]},
         "dtype": "f64", **erec["f64"],
         "cylinder": crec["f64"]["single"], "step3d": s3rec["single"],
+        "custom_uu": cfrec,
         "f32": {"launches": cavity_launches["ell_f32"] + d1[2] + d2[2]
-                + d14[2] + d18[2],
+                + d14[2] + d18[2] + d21[2],
                 **erec["f32"], "cylinder": crec["f32"]["single"]}})
     kernels_line.append({
         "name": "ell_block_spmv", "route": "cuda", "source": ELL_SOURCE,

@@ -9,7 +9,9 @@ multigrid, dense and factorization-free subsolves, Picard and Newton
 drivers (with Anderson mixing on the Picard full solve, damping on the
 others), GCRO-DR recycling across solves, SUPG streamline diffusion
 (system and preconditioner), theta-scheme and BDF2 time stepping,
-drag/lift functionals and the model entry points (``models``).  The JAX package
+drag/lift functionals, the model entry points (``models``) and the
+custom-form API (the mini-UFL ``forms`` with ``PCDAssembler``,
+``PCDKrylovSolver`` and ``PCDNewtonSolver``).  The JAX package
 ``fenapack_tpu`` is the reference; the layout of this package mirrors it
 module by module.
 
@@ -40,7 +42,9 @@ from .solvers.oseen import OseenSolver
 from .solvers.nonlinear import (NonlinearSolver, NonlinearResult,
                                 FullSolveResult)
 from .solvers.unsteady import UnsteadySolver, UnsteadyResult
+from .solvers.custom import PCDAssembler, PCDKrylovSolver, PCDNewtonSolver
 from .solvers import gmg
+from .fem import forms
 from .utils.functionals import (boundary_reaction, eval_p1, p1_point_weights,
                                 make_device_functional)
 from .utils.io import save_checkpoint, load_checkpoint
@@ -64,7 +68,8 @@ __all__ = [
     "refresh_recycle", "make_pcd_apply", "make_fieldsplit_upper",
     "OseenSolver",
     "NonlinearSolver", "NonlinearResult", "FullSolveResult",
-    "UnsteadySolver", "UnsteadyResult", "gmg", "models",
+    "UnsteadySolver", "UnsteadyResult", "PCDAssembler", "PCDKrylovSolver",
+    "PCDNewtonSolver", "gmg", "forms", "models",
     "boundary_reaction", "eval_p1", "p1_point_weights",
     "make_device_functional", "save_checkpoint", "load_checkpoint",
 ]

@@ -110,6 +110,9 @@ class ELL:
         """y = A @ x for x of shape (n_cols,) or (n_cols, k)."""
         return ell_spmv(self.cols, self.vals, x.contiguous(), self.n_cols)
 
+    def row_sums(self) -> torch.Tensor:
+        return torch.sum(self.vals, dim=1)
+
     def diag_from(self, diag_pos: torch.Tensor) -> torch.Tensor:
         return self.vals.reshape(-1)[diag_pos]
 
@@ -155,6 +158,9 @@ class BlockELL:
         """y = A @ x for x of shape (n_cols,) or (n_cols, k)."""
         return bsr_spmv(self.nbr, self.tiles, x.contiguous(), self.n_rows,
                         self.n_cols)
+
+    def row_sums(self) -> torch.Tensor:
+        return torch.sum(self.tiles, dim=2).reshape(-1)[:self.n_rows]
 
     def diag_from(self, diag_pos: torch.Tensor) -> torch.Tensor:
         return self.tiles.reshape(-1)[diag_pos]

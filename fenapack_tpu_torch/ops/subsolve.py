@@ -1,8 +1,10 @@
-"""Inner subsolves: fixed-iteration Chebyshev and dense explicit inverses.
+"""Inner subsolves: Jacobi, lumped mass, fixed-iteration Chebyshev and
+dense explicit inverses.
 
-The port of ``fenapack_tpu/ops/subsolve.py`` (Chebyshev, power bounds,
-dense solvers).  Every solver here is a fixed-iteration preconditioner: a
-static chain of SpMVs and vector updates, no data-dependent control flow.
+The port of ``fenapack_tpu/ops/subsolve.py`` (Jacobi, lumped mass,
+Chebyshev, power bounds, dense solvers).  Every solver here is a
+fixed-iteration preconditioner: a static chain of SpMVs and vector updates,
+no data-dependent control flow.
 """
 from __future__ import annotations
 
@@ -10,6 +12,21 @@ from typing import Callable, Tuple
 
 import numpy as np
 import torch
+
+
+def make_jacobi(diag: torch.Tensor) -> Callable:
+    dinv = 1.0 / diag
+    return lambda r: dinv * r
+
+
+def lumped_inverse(M) -> torch.Tensor:
+    """Row-sum (lumped) mass inverse: exact for the constant mode,
+    spectrally equivalent to Mp^{-1} (standard PCD practice for the mass
+    subsolve).  Empty rows (alignment padding) get identity."""
+    rs = M.row_sums()
+    ok = rs != 0
+    return torch.where(ok, 1.0 / torch.where(ok, rs, torch.ones_like(rs)),
+                       torch.ones_like(rs))
 
 
 def chebyshev_solver(matvec: Callable, dinv: torch.Tensor, lmin: float,

@@ -2,8 +2,8 @@
 
 The subset of ``fenapack_tpu/solvers/config.py`` (plain dataclasses) that
 the port reads: every field here changes what a solve does.  The JAX
-package's other options (the lumped subsolve, mixed-precision IR rounds,
-split assembly, ``hi_matvec``) come back with the code that ports them.
+package's other options (mixed-precision IR rounds, split assembly,
+``hi_matvec``) come back with the code that ports them.
 """
 from __future__ import annotations
 
@@ -53,6 +53,7 @@ class SubsolveConfig(MultigridConfig):
       ``chebyshev`` — fixed-iteration Jacobi-Chebyshev
       ``gmg``       — geometric multigrid V-cycles (needs a mesh hierarchy)
       ``lu``        — exact dense inverse (validation scale)
+      ``lumped``    — the inverse of the row sums (the mass Mp)
     """
     method: str = "gmg"
     iters: int = 10                      # chebyshev iterations

@@ -4,8 +4,8 @@ The port of ``fenapack_tpu/solvers/oseen.py::OseenSolver``: Picard or
 Newton linearization (the Newton operator adds the reaction blocks R_ab to
 the velocity block), PCD Dirichlet rows or enclosed flow (constant pressure
 nullspace), Ap by pressure multigrid, Chebyshev or dense LU, Mp by
-Chebyshev, the velocity block by multigrid, dense LU or a fixed number of
-Jacobi, Chebyshev or minimal-residual sweeps.  ``theta`` and
+Chebyshev or lumped, the velocity block by multigrid, dense LU or a fixed
+number of Jacobi, Chebyshev or minimal-residual sweeps.  ``theta`` and
 ``inv_dt`` turn the operator into the unsteady schemes' effective one,
 ``theta A1 + inv_dt M`` with ``theta R``, in the system matvec, the velocity
 multigrid and the PCD apply (``Mp/dt`` in Fp).  SUPG streamline diffusion
@@ -133,6 +133,12 @@ class OseenSolver:
             solve = subsolve.masked_spd_solver_dense(op, pattern, bc, dt,
                                                      nullspace=nullspace)
             return lambda: solve
+        if cfg.method == "lumped":
+            dinv = subsolve.lumped_inverse(op).to(dt)
+            if mask is None:
+                return lambda: (lambda r: dinv * r)
+            free = 1.0 - mask
+            return lambda: (lambda r: free * dinv * r + mask * r)
         if cfg.method == "chebyshev":
             diag = op.diag_from(pattern.diag_pos)
             if mask is not None:

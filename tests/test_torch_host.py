@@ -170,7 +170,9 @@ def test_import_does_not_load_jax():
             "fenapack_tpu_torch.utils.io, fenapack_tpu_torch.highre, "
             "fenapack_tpu_torch.solvers.krylov, fenapack_tpu_torch.step3d, "
             "fenapack_tpu_torch.fem.mesh3d, fenapack_tpu_torch.trace, "
-            "fenapack_tpu_torch.determinism\n"
+            "fenapack_tpu_torch.determinism, fenapack_tpu_torch.fem.forms, "
+            "fenapack_tpu_torch.solvers.custom, "
+            "fenapack_tpu_torch.custom_forms\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('fenapack_tpu.') "
             "or m == 'fenapack_tpu')\n"
