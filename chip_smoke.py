@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's six paths on the card (the step benchmark, the
-lid-driven cavity, the DFG cylinder, the SUPG-stabilized step at high
-Reynolds number, the 3D backward-facing step, the custom-form API), in
-phases that each print one or more lines:
+Drives the port's paths on the card (the step benchmark, the lid-driven
+cavity, the DFG cylinder, the SUPG-stabilized step at high Reynolds
+number, the 3D backward-facing step, the custom-form API, the
+high-precision solves, Anderson Picard, the body force and the two demo
+entry points), in phases that each print one or more lines:
 
   1. device  - require CUDA; print ``nvidia-smi`` name and power limit.
   2. build   - compile every kernel library from csrc/ (one nvcc per source,
@@ -19,10 +20,11 @@ phases that each print one or more lines:
                operators' time beside the HBM bound and a cuSPARSE BSR
                product of the same blocks.
   4. slice   - the step benchmark's timed solve (Re = 100, Picard +
-               Anderson(6), PCD-BRM2, f64 FGMRES to 1e-8); asserts
-               convergence, outer iterations within the oracle's 10% band,
-               every linear solve at true relative residual <= 1e-8 and BSR
-               kernel launches > 0.
+               Anderson(6), PCD-BRM2, f64 FGMRES to 1e-8) and its stage
+               breakdown (``bench.run``); asserts convergence, outer
+               iterations within the oracle's 10% band, every linear solve
+               at true relative residual <= 1e-8 and BSR kernel launches
+               > 0.
   5. reference - the level-1 step solve on the card against the same solve
                on the CPU (the plain versions): per-step counts within 1 and
                states within the nonlinear tolerance.
@@ -137,6 +139,49 @@ phases that each print one or more lines:
  25. custom-3d - the 3D step at level 1: the custom Mp, Ap, Kp with the
                inflow face term and the uu block against the factored 3D
                assembler (1e-12).
+ 26. ir      - the A/B of the high-precision solve at step level 2: the
+               benchmark's solve with the single-round f64 FGMRES
+               (``krylov.hi_krylov``, the default) and with the JAX bench's
+               multi-round mode (f32 rounds to 2e-6 on the f64 true
+               residual, GCRO-DR 16, cap 120), each after a two-step
+               warm-up: per-step counts, rounds, wall, K1/K2 launches;
+               asserts convergence, every solve at <= 1e-8 true, totals <=
+               301.  Then one ``hi_matvec`` refinement at the first
+               linearization (rounds printed).
+ 27. solve-ir - ``solve_ir`` in both modes at the first linearization:
+               the last history entry <= 1e-8 |b|, x within 1e-6 of
+               ``make_ir_solve``'s.
+ 28. batch   - ``solve_batch`` of -F, -F/2 and two seeded random right-hand
+               sides: each column equal to its own ``solve`` bit for bit;
+               the batch's wall and four separate solves' in turns.
+ 29. anderson - ``solve_anderson(m=3)`` and plain ``solve_fused`` at step
+               level 1 to a nonlinear 1e-8: both converge, states within
+               1e-6; counts printed; the card's Anderson run against the
+               CPU's: as many steps, each count within 1, states within
+               1e-6.
+ 30. stage-breakdown - phase 4's ``stage_breakdown``: seven finite keys,
+               every stage time > 0.
+ 31. surface - the manufactured solution through ``set_body_force`` at n =
+               8 and 16 on the card (rates > 6 and > 3); the two demo entry
+               points through the ``main(argv)`` that ``python -m`` runs,
+               one after the other: ``navier_stokes_pcd -l 2 --ls
+               iterative`` (mixed: f64 system, f32 preconditioner;
+               converged) and ``unsteady_channel --t-end 1.0 --dt 0.1
+               --scheme bdf2 --vtk-every 5`` in a temporary working
+               directory; then K3 against the plain version on every ELL
+               operator those paths and MMS n = 16 apply (the high-precision
+               system and residual, every multigrid level's A1 and Ap, D,
+               B^T, Mp, Kp, the P2 mass, the restrictions; single products
+               with 1 and 2 right-hand sides, block products with and
+               without y0), in the dtype the path applies and in the other
+               one (1e-12 in f64, 1e-5 in f32), at the entry points' first
+               states and the MMS solution; the VTK files parse to their
+               meshes' POINTS and CELLS.
+
+The card-against-CPU phases (5, 8, 12, 16, 19, 24, 29) hand their CPU runs
+to two worker processes (spawned, each with (cores - 1) // 2 torch
+threads) and do their card runs meanwhile; only phase 29 prints
+walls taken while both run, and marks them shared-host.
 
 Then one JSON line with the kernels' records, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit, no
@@ -147,9 +192,17 @@ calls from Python (host-bound for the small operators; an operator that
 fits in the 50 MB L2 stays there), and for the headline operators also on
 the device alone with the L2 flushed before each call.
 """
+import atexit
+import contextlib
+import copy
+import io
 import json
+import multiprocessing
+import os
 import re
+import shutil
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -190,6 +243,9 @@ S3_HEADLINE = f"A1 velocity level {S3_LEVEL}"
 # cap of 1.1 times it; K3 against its plain version on the path's blocks
 CF_LEVEL, CF_ORACLE, CF_K3_TOL, CF_REF_STEPS = 2, 271, 1e-13, 3
 CF_CAP = int(1.1 * CF_ORACLE)
+STAGES = ("per_outer_iter_ms", "outer_matvec_ms", "pc_apply_ms",
+          "pc_velocity_solve_ms", "pc_pcd_apply_ms", "pc_bt_mv_ms",
+          "krylov_algebra_and_loop_ms")
 PTXAS = re.compile(r"Compiling entry function '(\w+)'|(\d+) bytes spill "
                    r"stores, (\d+) bytes spill loads|Used (\d+) registers")
 
@@ -197,6 +253,51 @@ PTXAS = re.compile(r"Compiling entry function '(\w+)'|(\d+) bytes spill "
 def _require(ok: bool, what: str):
     if not ok:
         raise AssertionError(what)
+
+
+def mms_errors(n: int, device):
+    """The manufactured solution of ``tests/test_mms.py`` on the n x n unit
+    square through ``set_body_force``: ``u = (sin(pi x) cos(pi y), -cos(pi
+    x) sin(pi y))``, ``p = sin(pi x) sin(pi y)``, nu = 1, enclosed flow,
+    dense LU subsolves, Picard to 1e-8.  Returns the RMS nodal errors of
+    the velocity and of the mean-free pressure, the solver and its
+    converged state."""
+    from fenapack_tpu_torch import (WALL, DirichletBC, NonlinearSolver,
+                                    NSAssembler, SolverConfig, overrides,
+                                    rectangle_mesh)
+    pi = np.pi
+
+    def u_exact(x):
+        return np.stack([np.sin(pi * x[:, 0]) * np.cos(pi * x[:, 1]),
+                         -np.cos(pi * x[:, 0]) * np.sin(pi * x[:, 1])], 1)
+
+    def force(x):
+        sx, cx = np.sin(pi * x[:, 0]), np.cos(pi * x[:, 0])
+        sy, cy = np.sin(pi * x[:, 1]), np.cos(pi * x[:, 1])
+        return np.stack([2 * pi**2 * sx * cy + 0.5 * pi * np.sin(2 * pi * x[:, 0])
+                         + pi * cx * sy,
+                         -2 * pi**2 * cx * sy + 0.5 * pi * np.sin(2 * pi * x[:, 1])
+                         + pi * sx * cy], 1)
+
+    mesh = rectangle_mesh(0.0, 0.0, 1.0, 1.0, n, n)
+    mesh.mark_boundary({WALL: lambda x: np.ones(x.shape[0], bool)},
+                       overwrite=True)
+    asm = NSAssembler(mesh, 1.0, device=device)
+    asm.set_body_force(force)
+    cfg = overrides(SolverConfig(), {
+        "pcd.variant": "BRM2", "krylov.rtol": 1e-10, "krylov.maxiter": 200,
+        "velocity.method": "lu", "pcd.ap.method": "lu"})
+    nl = NonlinearSolver(asm, [DirichletBC.velocity(asm.W, [WALL], u_exact)],
+                         cfg, pcd_marker=None, enclosed=True)
+    r = nl.solve(rtol=1e-8, max_steps=30)
+    _require(r.converged, f"MMS n={n} did not converge")
+    w, n2 = r.w.cpu().numpy(), asm.n2
+    ue = u_exact(asm.W.V.dof_coords())
+    err_u = np.sqrt(np.mean((np.stack([w[:n2], w[n2:2 * n2]]) - ue.T) ** 2))
+    cq = asm.W.Q.dof_coords()
+    ph, pe = w[2 * n2:], np.sin(pi * cq[:, 0]) * np.sin(pi * cq[:, 1])
+    err_p = np.sqrt(np.mean(((ph - ph.mean()) - (pe - pe.mean())) ** 2))
+    return (err_u, err_p), (nl, r.w)
 
 
 def path_operators(nl):
@@ -229,6 +330,168 @@ def path_operators(nl):
     return ops
 
 
+def ell_path_operators(o, wind):
+    """``(name, kind, cols, n_cols, vals, R)`` of every ELL operator that
+    the path of the Oseen solver ``o`` (ELL layout) applies at ``wind``, in
+    the dtype it applies it: ``kind`` "block" (the velocity block product,
+    ``R`` its reaction blocks or None) or "single".  The high-precision
+    system and residual (A1 on the fine pattern as a block and as a single
+    product, D, B^T; the P2 mass of a time scheme) and the compute-dtype
+    preconditioner (A1 on every velocity multigrid level or on the fine
+    pattern, the P1 bottom operator, B^T, D, Ap on every pressure level,
+    Mp, Kp, the multigrid restrictions)."""
+    from fenapack_tpu_torch.ops.sparse import ELL
+    from fenapack_tpu_torch.solvers import gmg
+    asm, dt, cfg = o.asm, o.dtype, o.config
+    ops = []
+    hi = asm.pat_p2_hi
+    A1h, Rh = o._operator_values_raw(wind.to(asm.dtype), hi=True)
+    ops += [("A1 system", "block", hi.cols, hi.n_cols, A1h, Rh),
+            ("A1 residual", "single", hi.cols, hi.n_cols,
+             asm.picard_matrix_values(wind.to(asm.dtype), hi=True), None)]
+    sets = [("", asm.const_hi)] + ([] if asm.const is asm.const_hi
+                                   else [(" (compute)", asm.const)])
+    for tag, c in sets:
+        ops += [(f"D{a}{tag}", "single", m.cols, m.n_cols, m.vals, None)
+                for a, m in enumerate(c.D)]
+        ops += [(f"Bt{a}{tag}", "single", m.cols, m.n_cols, m.vals, None)
+                for a, m in enumerate(c.DT)]
+    if o.theta != 1.0 or o.inv_dt != 0.0:
+        m = asm.mass2(hi=True)
+        ops.append(("M2", "single", m.cols, m.n_cols, m.vals, None))
+    wc = wind.to(dt)
+    A1c, Rc = o._operator_values(wc)
+    vh = o.velocity_hierarchy
+    if cfg.velocity.method == "gmg":
+        vals = gmg.velocity_gmg_values(
+            vh, wc, o.bc_mask_u, dt, newton=o.linearization == "newton",
+            fine_values=(A1c, Rc), theta=o.theta, inv_dt=o.inv_dt,
+            supg=cfg.jpc_supg or cfg.system_supg)
+        for l, (la, (A1, R)) in enumerate(zip(vh.asms, vals["levels"])):
+            p = la.pat_p2
+            ops.append((f"A1 velocity level {l}", "block", p.cols, p.n_cols,
+                        A1, R))
+        if vals.get("p1_vals") is not None:
+            p = vh.asms[0].pat_p1
+            ops.append(("P1 bottom operator", "single", p.cols, p.n_cols,
+                        vals["p1_vals"], None))
+        transfers = [("P2", l, t) for l, t in enumerate(vh.transfers)]
+    else:
+        p = asm.pat_p2
+        ops.append(("A1 compute", "block", p.cols, p.n_cols, A1c, Rc))
+        transfers = []
+    ph = o.ap_hierarchy
+    if cfg.pcd.ap.method == "gmg":
+        ops += [(f"Ap pressure level {l}", "single", lev.Ap.cols,
+                 lev.Ap.n_cols, lev.Ap.vals, None)
+                for l, lev in enumerate(ph.levels)]
+        transfers += [("P1", l, t) for l, t in enumerate(ph.transfers)]
+    else:
+        m = asm.const.Ap
+        ops.append(("Ap", "single", m.cols, m.n_cols, m.vals, None))
+    kp = asm.kp_values(wc, surface=cfg.pcd.variant == "BRM2").to(dt)
+    p1 = asm.pat_p1
+    ops += [("Mp", "single", asm.const.Mp.cols, asm.const.Mp.n_cols,
+             asm.const.Mp.vals, None),
+            ("Kp", "single", p1.cols, p1.n_cols, kp, None)]
+    ops += [(f"{name} restrict {l + 1}->{l}", "single", t._PT.cols,
+             t._PT.n_cols, t._PT.vals, None)
+            for name, l, t in transfers if isinstance(t._PT, ELL)]
+    return ops
+
+
+# ---- the runs of the card-against-CPU phases ------------------------- #
+# One function per run, called on the card in this process and on the CPU
+# in a worker process of ``main`` (so that the CPU half of a phase runs
+# beside its card half); each returns host data: the final state as a NumPy
+# array and the per-step counts.
+def ref_step(where):
+    from fenapack_tpu_torch import bench
+    nl1 = bench.build(1, device=torch.device(where))
+    r = nl1.make_full_solve(rtol=bench.RTOL_NL, rtol_lin=bench.RTOL_LIN,
+                            max_steps=bench.MAX_STEPS,
+                            anderson=bench.ANDERSON)(
+        nl1.initial_state().to(torch.float64))
+    return r.w.cpu().numpy(), r.iters, r.converged
+
+
+def ref_cavity(where):
+    from fenapack_tpu_torch import cavity
+    w, its = None, []
+    for Re in cavity.RE:
+        r = cavity.build(1, Re, device=torch.device(where)).solve(
+            w, rtol=cavity.RTOL, max_steps=cavity.MAX_STEPS)
+        _require(r.converged, f"level 1 {where} Re {Re} did not converge")
+        w = r.w
+        its.append(r.linear_iters)
+    return w.cpu().numpy(), its
+
+
+def ref_obstacle(where):
+    from fenapack_tpu_torch import cylinder
+    from fenapack_tpu_torch.models import ObstacleChannel2D
+    us = ObstacleChannel2D(level=1, device=str(where)).solver(
+        "BRM2", gmg_subsolves=True, unsteady=0.05, scheme="bdf2",
+        **cylinder.CFG)
+    rr = us.solve_fused(5 * 0.05)
+    return rr.w.cpu().numpy(), rr.linear_iters
+
+
+def ref_newton_l0(where):
+    from fenapack_tpu_torch import cylinder
+    rr = cylinder.build(0, 20, device=torch.device(where)).solve(
+        rtol=cylinder.RTOL, max_steps=2)
+    return rr.w.cpu().numpy(), rr.linear_iters
+
+
+def ref_bdf2_l0(where):
+    from fenapack_tpu_torch import cylinder
+    us = cylinder.build(0, 100, device=torch.device(where), unsteady=True)
+    rr = us.solve_fused(3 * us.dt)
+    return rr.w.cpu().numpy(), rr.linear_iters
+
+
+def ref_highre(where, recycle):
+    from fenapack_tpu_torch import highre
+    r = highre.build(1, highre.NU, device=torch.device(where),
+                     recycle=recycle).solve_fused(
+        rtol=highre.RTOL, rtol_lin=highre.RTOL_LIN, max_steps=3,
+        damping=highre.DAMPING)
+    return r.w.cpu().numpy(), r.linear_iters
+
+
+def ref_step3d(where):
+    from fenapack_tpu_torch import step3d
+    r = step3d.build(1, device=torch.device(where)).solve_fused(
+        rtol=step3d.RTOL, rtol_lin=step3d.RTOL_LIN, max_steps=2)
+    return r.w.cpu().numpy(), r.linear_iters
+
+
+def ref_custom(where, kw):
+    from fenapack_tpu_torch import custom_forms
+    r = custom_forms.run(custom_forms.build(1, variant="BRM1",
+                                            device=torch.device(where), **kw),
+                         max_steps=CF_REF_STEPS)
+    return r["x"].cpu().numpy(), r["iters"], r["lin_rel"]
+
+
+def ref_anderson(where):
+    from fenapack_tpu_torch import bench
+    r = bench.build(1, device=torch.device(where)).solve_anderson(
+        m=3, rtol=1e-8, max_steps=40)
+    return r.w.cpu().numpy(), r.linear_iters, r.converged
+
+
+def _worker_init(threads):
+    torch.set_num_threads(threads)
+    import fenapack_tpu_torch  # noqa: F401  (the import, off the clock)
+
+
+def rel_diff(a, b):
+    a, b = torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu()
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+
 def main():
     t_start = time.perf_counter()
     phase_s = {}
@@ -251,12 +514,27 @@ def main():
           f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     from fenapack_tpu_torch import (INFLOW, backward_step_mesh, bench,
-                                    cavity, cavity_mesh, custom_forms,
-                                    cylinder, cylinder_channel_mesh, forms,
-                                    highre, measure, snap_to_circle, step3d)
-    from fenapack_tpu_torch.models import ObstacleChannel2D, StepFlow3D
+                                    cavity, cavity_mesh, channel_mesh,
+                                    custom_forms, cylinder,
+                                    cylinder_channel_mesh, forms, highre,
+                                    measure, navier_stokes_pcd, overrides,
+                                    snap_to_circle, step3d, unsteady_channel)
+    from fenapack_tpu_torch.models import StepFlow3D
     from fenapack_tpu_torch.ops import bsr_spmv, ell_spmv, kernels
     from fenapack_tpu_torch.solvers import gmg
+
+    # two worker processes for the CPU halves of the card-against-CPU
+    # phases: each phase hands them its CPU runs and does its card runs
+    # meanwhile (no wall is printed from those phases); the host's cores
+    # but one (this process's) shared between them.  Stopped at exit
+    # whatever happens.
+    cores = len(os.sched_getaffinity(0))
+    worker = multiprocessing.get_context("spawn").Pool(
+        2, initializer=_worker_init, initargs=(max(1, (cores - 1) // 2),))
+    atexit.register(worker.terminate)
+
+    def on_cpu(fn, *args):
+        return worker.apply_async(fn, ("cpu",) + args)
 
     def yardsticks(kernel, plain, lib, nbytes, flops, dtype):
         """Times of one product, for the kernel, its plain version and the
@@ -370,20 +648,14 @@ def main():
 
     # ---- 5. reference: step level 1 on the card vs the CPU -------------- #
     t0 = time.perf_counter()
-    runs = {}
-    for where in (dev, torch.device("cpu")):
-        nl1 = bench.build(1, device=where)
-        full = nl1.make_full_solve(rtol=bench.RTOL_NL, rtol_lin=bench.RTOL_LIN,
-                                   max_steps=bench.MAX_STEPS,
-                                   anderson=bench.ANDERSON)
-        runs[where.type] = full(nl1.initial_state().to(torch.float64))
-    g, c = runs["cuda"], runs["cpu"]
-    diff = float(torch.linalg.norm(g.w.cpu() - c.w) / torch.linalg.norm(c.w))
-    print(f"[reference] level 1 iters cuda {g.iters} cpu {c.iters}; "
+    job = on_cpu(ref_step)
+    (gw, gi, gc), (cw, ci, cc) = ref_step(dev), job.get()
+    diff = rel_diff(gw, cw)
+    print(f"[reference] level 1 iters cuda {gi} cpu {ci}; "
           f"relative state difference {diff}", flush=True)
-    _require(g.converged and c.converged and len(g.iters) == len(c.iters)
-             and all(abs(a - b) <= 1 for a, b in zip(g.iters, c.iters)),
-             f"level-1 counts differ: cuda {g.iters}, cpu {c.iters}")
+    _require(gc and cc and len(gi) == len(ci)
+             and all(abs(a - b) <= 1 for a, b in zip(gi, ci)),
+             f"level-1 counts differ: cuda {gi}, cpu {ci}")
     _require(diff <= bench.RTOL_NL, f"level-1 states differ by {diff}")
     done("reference", t0)
 
@@ -549,19 +821,9 @@ def main():
 
     # ---- 8. cavity reference: level 1 on the card vs the CPU ------------ #
     t0 = time.perf_counter()
-    runs = {}
-    for where in (dev, torch.device("cpu")):
-        w, its = None, []
-        for Re in cavity.RE:
-            r = cavity.build(1, Re, device=where).solve(
-                w, rtol=cavity.RTOL, max_steps=cavity.MAX_STEPS)
-            _require(r.converged, f"level 1 {where.type} Re {Re} did not "
-                     "converge")
-            w = r.w
-            its.append(r.linear_iters)
-        runs[where.type] = (w.cpu(), its)
-    (gw, gi), (cw, ci) = runs["cuda"], runs["cpu"]
-    diff = float(torch.linalg.norm(gw - cw) / torch.linalg.norm(cw))
+    job = on_cpu(ref_cavity)
+    (gw, gi), (cw, ci) = ref_cavity(dev), job.get()
+    diff = rel_diff(gw, cw)
     print(f"[cavity-reference] level 1 iters cuda {gi} cpu {ci}; relative "
           f"state difference {diff}", flush=True)
     _require(all(len(a) == len(b) and all(abs(p - q) <= 1
@@ -815,29 +1077,13 @@ def main():
 
     # ---- 12. cylinder reference: card against CPU ----------------------- #
     t0 = time.perf_counter()
-
-    def obstacle(where):
-        us = ObstacleChannel2D(level=1, device=str(where)).solver(
-            "BRM2", gmg_subsolves=True, unsteady=0.05, scheme="bdf2",
-            **cylinder.CFG)
-        rr = us.solve_fused(5 * 0.05)
-        return rr.w, rr.linear_iters
-
-    def newton_l0(where):
-        rr = cylinder.build(0, 20, device=where).solve(rtol=cylinder.RTOL,
-                                                       max_steps=2)
-        return rr.w, rr.linear_iters
-
-    def bdf2_l0(where):
-        us = cylinder.build(0, 100, device=where, unsteady=True)
-        rr = us.solve_fused(3 * us.dt)
-        return rr.w, rr.linear_iters
-
-    for what, run in (("obstacle channel level 1, 5 BDF2 steps", obstacle),
-                      ("cylinder level 0, 2 Newton steps of 2D-1", newton_l0),
-                      ("cylinder level 0, 3 BDF2 steps of 2D-2", bdf2_l0)):
-        (gw, gi), (cw, ci) = run(dev), run(torch.device("cpu"))
-        diff = float(torch.linalg.norm(gw.cpu() - cw) / torch.linalg.norm(cw))
+    runs = (("obstacle channel level 1, 5 BDF2 steps", ref_obstacle),
+            ("cylinder level 0, 2 Newton steps of 2D-1", ref_newton_l0),
+            ("cylinder level 0, 3 BDF2 steps of 2D-2", ref_bdf2_l0))
+    jobs = [on_cpu(run) for _, run in runs]
+    for (what, run), job in zip(runs, jobs):
+        (gw, gi), (cw, ci) = run(dev), job.get()
+        diff = rel_diff(gw, cw)
         print(f"[cylinder-reference] {what}: iters cuda {gi} cpu {ci}; "
               f"relative state difference {diff}", flush=True)
         _require(len(gi) == len(ci)
@@ -845,10 +1091,6 @@ def main():
                  f"{what}: counts differ: cuda {gi}, cpu {ci}")
         _require(diff <= 1e-6, f"{what}: states differ by {diff}")
     done("cylinder-reference", t0)
-
-    def rel_diff(a, b):
-        return float(torch.linalg.norm(a.cpu() - b.cpu())
-                     / torch.linalg.norm(b.cpu()))
 
     # ---- 13. K3 against the plain version at the config-5 shapes -------- #
     t0 = time.perf_counter()
@@ -1011,26 +1253,17 @@ def main():
 
     # ---- 16. config 5 reference: level 1 on the card vs the CPU --------- #
     t0 = time.perf_counter()
-    for rc in (0, HR_RECYCLE):
-        res = {}
-        for where in (dev, torch.device("cpu")):
-            r = highre.build(1, highre.NU, device=where, recycle=rc
-                             ).solve_fused(rtol=highre.RTOL,
-                                           rtol_lin=highre.RTOL_LIN,
-                                           max_steps=3,
-                                           damping=highre.DAMPING)
-            res[where.type] = r
-        g, c = res["cuda"], res["cpu"]
-        diff = rel_diff(g.w, c.w)
+    jobs = {rc: on_cpu(ref_highre, rc) for rc in (0, HR_RECYCLE)}
+    for rc, job in jobs.items():
+        (gw, gi), (cw, ci) = ref_highre(dev, rc), job.get()
+        diff = rel_diff(gw, cw)
         print(f"[highre-reference] level 1, Re 2000, 3 damped Picard steps, "
-              f"recycle {rc}: iters cuda {g.linear_iters} cpu "
-              f"{c.linear_iters}; relative state difference {diff}",
-              flush=True)
-        _require(len(g.linear_iters) == len(c.linear_iters)
-                 and all(abs(x - y) <= 1 for x, y in zip(g.linear_iters,
-                                                         c.linear_iters)),
+              f"recycle {rc}: iters cuda {gi} cpu {ci}; relative state "
+              f"difference {diff}", flush=True)
+        _require(len(gi) == len(ci)
+                 and all(abs(x - y) <= 1 for x, y in zip(gi, ci)),
                  f"config 5 level 1 recycle {rc}: counts differ: cuda "
-                 f"{g.linear_iters}, cpu {c.linear_iters}")
+                 f"{gi}, cpu {ci}")
         _require(diff <= 1e-6, f"config 5 level 1 recycle {rc}: states "
                  f"differ by {diff}")
     done("highre-reference", t0)
@@ -1179,17 +1412,13 @@ def main():
 
     # ---- 19. config 4 reference: level 1 on the card vs the CPU --------- #
     t0 = time.perf_counter()
-    res = {}
-    for where in (dev, torch.device("cpu")):
-        res[where.type] = step3d.build(1, device=where).solve_fused(
-            rtol=step3d.RTOL, rtol_lin=step3d.RTOL_LIN, max_steps=2)
-    g, c = res["cuda"], res["cpu"]
-    diff = rel_diff(g.w, c.w)
+    job = on_cpu(ref_step3d)
+    (gw, gi), (cw, ci) = ref_step3d(dev), job.get()
+    diff = rel_diff(gw, cw)
     print(f"[step3d-reference] level 1, two Picard steps: iters cuda "
-          f"{g.linear_iters} cpu {c.linear_iters}; relative state difference "
-          f"{diff}", flush=True)
-    _require(g.linear_iters == c.linear_iters, f"config 4 level 1: counts "
-             f"differ: cuda {g.linear_iters}, cpu {c.linear_iters}")
+          f"{gi} cpu {ci}; relative state difference {diff}", flush=True)
+    _require(gi == ci, f"config 4 level 1: counts differ: cuda {gi}, cpu "
+             f"{ci}")
     _require(diff <= 1e-7, f"config 4 level 1: states differ by {diff}")
     done("step3d-reference", t0)
 
@@ -1318,21 +1547,17 @@ def main():
 
     # ---- 24. custom forms at level 1: the card against the CPU --------- #
     t0 = time.perf_counter()
-    for label, kw in (("BRM1 fp form", dict(use_fp=True)),
-                      ("BRM1 gp form", dict(gp_scale=1.0))):
-        res = {}
-        for where in (dev, torch.device("cpu")):
-            res[where.type] = custom_forms.run(
-                custom_forms.build(1, variant="BRM1", device=where, **kw),
-                max_steps=CF_REF_STEPS)
-        g, c = res["cuda"], res["cpu"]
-        diff = rel_diff(g["x"], c["x"])
+    runs = (("BRM1 fp form", dict(use_fp=True)),
+            ("BRM1 gp form", dict(gp_scale=1.0)))
+    jobs = [on_cpu(ref_custom, kw) for _, kw in runs]
+    for (label, kw), job in zip(runs, jobs):
+        (gx, gi, glr), (cx, ci, _) = ref_custom(dev, kw), job.get()
+        diff = rel_diff(gx, cx)
         print(f"[custom-reference] level 1, {label}, {CF_REF_STEPS} Picard "
-              f"steps: iters cuda {g['iters']} cpu {c['iters']}; true rel "
-              f"res cuda {g['lin_rel']}; relative state difference {diff}",
-              flush=True)
-        _require(g["iters"] == c["iters"], f"custom level 1 {label}: counts "
-                 f"differ: cuda {g['iters']}, cpu {c['iters']}")
+              f"steps: iters cuda {gi} cpu {ci}; true rel res cuda {glr}; "
+              f"relative state difference {diff}", flush=True)
+        _require(gi == ci, f"custom level 1 {label}: counts differ: cuda "
+                 f"{gi}, cpu {ci}")
         _require(diff <= 1e-8, f"custom level 1 {label}: states differ by "
                  f"{diff}")
     done("custom-reference", t0)
@@ -1380,52 +1605,347 @@ def main():
     del uu, A1, ref
     done("custom-3d", t0)
 
+    # ---- 26. the IR A/B: the single-round f64 solve against the rounds -- #
+    # ``ir_paths``: BSR launches of each IR path (K1 "f64", K2 "f32"), each
+    # read just after a run that began with the counts at 0
+    t0 = time.perf_counter()
+    ir_paths = {}
+
+    def bsr_run(name, fn):
+        torch.cuda.synchronize()
+        bsr_spmv.reset_launches()
+        ell_spmv.reset_launches()
+        ts = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - ts
+        ir_paths[name] = {k: bsr_spmv.launches[k] for k in ("f64", "f32")}
+        _require(sum(ell_spmv.launches.values()) == 0,
+                 f"{name}: ELL launches on a BSR path")
+        return out, wall, ir_paths[name]
+
+    ab = {}
+    for (mode, over), (nlm, full, w0) in zip(
+            bench.IR_MODES, bench.ir_modes(2, device=dev,
+                                           warmup_steps=2).values()):
+        r, wall, n = bsr_run(f"IR A/B {mode}", lambda: full(w0))
+        ab[mode] = (nlm, r)
+        print(f"[ir] step l2, {mode} ({json.dumps(over)}): iters {r.iters} "
+              f"total {sum(r.iters)} (cap {OUTER_CAP}); rounds per solve "
+              f"{r.rounds}; wall {wall} s ({wall / sum(r.iters) * 1e3} ms "
+              f"per outer iteration); max linear true rel res "
+              f"{max(r.lin_rel)}; host syncs {r.host_syncs}; BSR launches "
+              f"K1 {n['f64']} K2 {n['f32']}", flush=True)
+        _require(r.converged, f"{mode}: the Picard solve did not converge")
+        _require(max(r.lin_rel) <= bench.RTOL_LIN,
+                 f"{mode}: linear true relative residuals {r.lin_rel}")
+        _require(sum(r.iters) <= OUTER_CAP,
+                 f"{mode}: {sum(r.iters)} outer iterations > {OUTER_CAP}")
+        _require(n["f64"] > 0 and n["f32"] > 0, f"{mode}: launches {n}")
+    nlr = ab["rounds"][0]
+    F1, fn1 = nlr.residual_of(nlr.initial_state().to(torch.float64))
+    wind1 = nlr.initial_state()[:nlr.n_u]
+    o_hm = copy.copy(nlr.oseen)
+    o_hm.config = overrides(nlr.oseen.config, {"krylov.hi_matvec": True,
+                                               "krylov.recycle": 0})
+    (x_hm, it_hm, rn_hm, res_hm, _), _, n = bsr_run(
+        "hi_matvec solve", lambda: o_hm.make_ir_solve(bench.RTOL_LIN)(
+            wind1, -F1))
+    print(f"[ir] hi_matvec, first linearization: {it_hm} iterations in "
+          f"{res_hm.rounds} rounds, true rel res {float(rn_hm / fn1)}; "
+          f"launches K1 {n['f64']} K2 {n['f32']}", flush=True)
+    _require(float(rn_hm) <= bench.RTOL_LIN * float(fn1) and n["f64"] > 0,
+             f"hi_matvec solve: {float(rn_hm / fn1)}, launches {n}")
+    done("ir", t0)
+
+    # ---- 27. solve_ir in both modes at the first linearization --------- #
+    t0 = time.perf_counter()
+    for mode in ("hi_krylov", "rounds"):
+        o = ab[mode][0].oseen
+        bn = float(torch.linalg.norm(F1))
+        (x, tot, hist), wall, n = bsr_run(
+            f"solve_ir {mode}", lambda: o.solve_ir(wind1, -F1,
+                                                  rtol=bench.RTOL_LIN))
+        xf = o.make_ir_solve(bench.RTOL_LIN)(wind1, -F1)[0]
+        diff = rel_diff(x, xf)
+        print(f"[solve-ir] {mode}: {tot} iterations, history {hist} (|b| "
+              f"{bn}); {wall} s; x against make_ir_solve's {diff}; "
+              f"launches K1 {n['f64']} K2 {n['f32']}", flush=True)
+        _require(hist[-1] <= bench.RTOL_LIN * bn,
+                 f"solve_ir {mode}: last true residual {hist[-1]}")
+        _require(diff <= 1e-6, f"solve_ir {mode}: x differs by {diff}")
+    done("solve-ir", t0)
+
+    # ---- 28. solve_batch against single solves -------------------------- #
+    t0 = time.perf_counter()
+    ob = nlr.oseen                   # f32 solves to 2e-6, cap 120
+    B = torch.stack([-F1, -0.5 * F1] + [
+        torch.as_tensor(rng.standard_normal(ob.n) * 1e-2, device=dev)
+        for _ in range(2)])
+    # walls in turns (batch, separate, batch, separate), each synchronized;
+    # the first batch's launches are counted
+    (X, it_b, cv_b), wall, n = bsr_run(
+        "solve_batch 4 RHS", lambda: ob.solve_batch(wind1, B))
+    walls = {"batch": [wall], "separate": []}
+    for kind in ("separate", "batch", "separate"):
+        ts = time.perf_counter()
+        out = ([ob.solve(wind1, B[i].clone())[0] for i in range(len(B))]
+               if kind == "separate" else ob.solve_batch(wind1, B))
+        torch.cuda.synchronize()
+        walls[kind].append(time.perf_counter() - ts)
+    same = [bool(torch.equal(X[i], s.x)) for i, s in enumerate(out)]
+    print(f"[batch] step l2, 4 right-hand sides (-F, -F/2, two seeded "
+          f"random): iters {it_b.tolist()}, converged {cv_b.tolist()}; "
+          f"walls in turns: batch {walls['batch']} s, 4 separate solves "
+          f"{walls['separate']} s; columns equal to their own solve bit for "
+          f"bit {same}; launches K1 {n['f64']} K2 {n['f32']}", flush=True)
+    _require(all(same), f"solve_batch columns differ from solve: {same}")
+    _require(bool(cv_b.all()), f"solve_batch converged {cv_b}")
+    del X, B, out
+    done("batch", t0)
+
+    # ---- 29. solve_anderson at step l1, the card against the CPU -------- #
+    t0 = time.perf_counter()
+    # both to a nonlinear 1e-8, so that the states agree to 1e-6 (the JAX
+    # package's test_anderson_same_solution_as_picard); the CPU's Anderson
+    # run goes on in a worker beside the card's two runs, so their walls
+    # are shared-host readings
+    job = on_cpu(ref_anderson)
+    nla = bench.build(1, device=dev)
+    g, _, n = bsr_run("solve_anderson l1", lambda: nla.solve_anderson(
+        m=3, rtol=1e-8, max_steps=40))
+    plain = nla.solve_fused(rtol=1e-8, max_steps=40)
+    diff = rel_diff(g.w, plain.w)
+    cw, ci, cc = job.get()
+    cdiff = rel_diff(g.w, cw)
+    print(f"[anderson] step l1 to 1e-8: Anderson(3) iters {g.linear_iters} "
+          f"({len(g.linear_iters)} steps, total {g.total_linear_iters}, "
+          f"{g.wall_time} s shared-host); plain solve_fused "
+          f"{plain.linear_iters} ({len(plain.linear_iters)} steps, total "
+          f"{plain.total_linear_iters}, {plain.wall_time} s shared-host); "
+          f"states {diff} "
+          f"apart; CPU Anderson(3) {ci} ({len(ci)} steps, total {sum(ci)}),"
+          f" state {cdiff} from the card's; launches K1 {n['f64']} K2 "
+          f"{n['f32']}", flush=True)
+    _require(g.converged and plain.converged and cc,
+             "Anderson (card or CPU) or plain Picard did not converge")
+    _require(diff <= 1e-6, f"Anderson and plain Picard differ by {diff}")
+    _require(len(ci) == len(g.linear_iters) and all(
+        abs(a - b) <= 1 for a, b in zip(g.linear_iters, ci)),
+        f"Anderson counts: cuda {g.linear_iters}, cpu {ci}")
+    _require(cdiff <= 1e-6, f"Anderson card and CPU states differ by "
+             f"{cdiff}")
+    del ab, nlr, o_hm
+    done("anderson", t0)
+
+    # ---- 30. the bench's stage breakdown (phase 4's run) ---------------- #
+    t0 = time.perf_counter()
+    sb = record["detail"]["stage_breakdown"]
+    print(f"[stage-breakdown] step l2, ms per outer iteration: "
+          f"{json.dumps(sb)}", flush=True)
+    _require(sorted(sb) == sorted(STAGES) and all(
+        np.isfinite(v) for v in sb.values()) and all(
+        sb[k] > 0 for k in STAGES[:-1]), f"stage breakdown {sb}")
+    done("stage-breakdown", t0)
+
+    # ---- 31. the rest of the surface: MMS, the two entry points, VTK ---- #
+    t0 = time.perf_counter()
+    ell_paths = {}
+
+    def counted(name, fn):
+        """``fn()`` with the launch counts set to 0 just before it and read
+        into ``ell_paths[name]`` just after it."""
+        torch.cuda.synchronize()
+        bsr_spmv.reset_launches()
+        ell_spmv.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        ell_paths[name] = measure.launch_counts()
+        return out
+
+    errs, mms = {}, {}
+    for n_mms in (8, 16):
+        ts = time.perf_counter()
+        errs[n_mms], mms[n_mms] = counted(f"MMS n={n_mms}",
+                                          lambda: mms_errors(n_mms, dev))
+        print(f"[surface] MMS n={n_mms}: velocity error {errs[n_mms][0]}, "
+              f"pressure error {errs[n_mms][1]}; "
+              f"{time.perf_counter() - ts:.3f} s; launches "
+              f"{json.dumps(ell_paths[f'MMS n={n_mms}'])}", flush=True)
+    ru, rp = (errs[8][0] / errs[16][0], errs[8][1] / errs[16][1])
+    print(f"[surface] MMS rates 8 -> 16: velocity {ru}, pressure {rp}",
+          flush=True)
+    _require(ru > 6.0 and rp > 3.0, f"MMS rates {ru}, {rp}")
+    _require(errs[8][0] < 5e-3 and errs[8][1] < 5e-2, f"MMS {errs[8]}")
+    # the two demo entry points through the ``main(argv)`` that ``python
+    # -m`` runs, one after the other in this process, the working
+    # directory a temporary one (the channel writes its VTK files there)
+    tmp = tempfile.mkdtemp(prefix="smoke_surface_")
+    nsp_vtk = os.path.join(tmp, "step.vtk")
+    nsp_argv = ["-l", "2", "--ls", "iterative"]
+    ch_argv = ["--t-end", "1.0", "--dt", "0.1", "--scheme", "bdf2"]
+    entries = {"navier_stokes_pcd -l 2 --ls iterative":
+               (navier_stokes_pcd, nsp_argv + ["--vtk", nsp_vtk]),
+               "unsteady_channel bdf2 t 1.0 dt 0.1":
+               (unsteady_channel, ch_argv + ["--vtk-every", "5"])}
+    outs, cwd = {}, os.getcwd()
+    for k, (mod, argv) in entries.items():
+        buf = io.StringIO()
+        os.chdir(tmp)
+        try:
+            with contextlib.redirect_stdout(buf):
+                counted(k, lambda: mod.main(argv))
+        finally:
+            os.chdir(cwd)
+        outs[k] = buf.getvalue()
+        print(f"[surface] python -m {mod.__name__} {' '.join(argv)}:\n"
+              + outs[k].rstrip(), flush=True)
+    _require("converged: True" in outs["navier_stokes_pcd -l 2 --ls "
+                                       "iterative"],
+             "navier_stokes_pcd did not converge")
+    _require(re.search(r"^wall: ", outs["unsteady_channel bdf2 t 1.0 dt "
+                                        "0.1"], re.M) is not None,
+             "unsteady_channel printed no wall line")
+    for k, counts in ell_paths.items():
+        _require(counts["ell_spmv"]["f64"] > 0
+                 and sum(counts["bsr_spmv"].values()) == 0,
+                 f"{k}: launches {counts}")
+    # K3 against its plain version on every ELL operator these paths apply,
+    # at their shapes and in the dtype each applies it (the mixed mode's
+    # preconditioner in f32), at the entry points' first states and the
+    # MMS n=16 solution
+    nsp, _, _ = navier_stokes_pcd.build(
+        navier_stokes_pcd.parser().parse_args(nsp_argv), dev)
+    ch, _ = unsteady_channel.build(
+        unsteady_channel.parser().parse_args(ch_argv), dev)
+    n_checked = {"f64": 0, "f32": 0}
+    for tag, o, w in (("navier_stokes_pcd l2 mixed", nsp.oseen,
+                       nsp.initial_state()),
+                      ("unsteady_channel l1 bdf2", ch.oseen,
+                       ch.initial_state()),
+                      ("MMS n=16", mms[16][0].oseen, mms[16][1])):
+        for name, kind, cols, n_cols, vals0, R0 in ell_path_operators(
+                o, w[:o.n_u]):
+            # in the dtype the path applies (first) and in the other one
+            line = []
+            for dt in sorted((torch.float64, torch.float32),
+                             key=lambda t: t != vals0.dtype):
+                kd = ell_spmv._NAMES[dt]
+                tol = F64_TOL if kd == "f64" else F32_TOL
+                vals = vals0.to(dt).contiguous()
+                R = None if R0 is None else R0.to(dt).contiguous()
+                rnd = lambda *shape: torch.as_tensor(
+                    rng.standard_normal(shape), dtype=dt, device=dev)
+                rels = []
+                if kind == "single":
+                    for x in (rnd(n_cols), rnd(n_cols, 2)):
+                        a, r = rel_err(
+                            ell_spmv.ell_spmv(cols, vals, x, n_cols),
+                            ell_spmv.ell_spmv_plain(cols, vals, x, n_cols))
+                        erec[kd]["max_abs_err"] = max(
+                            erec[kd]["max_abs_err"], a)
+                        rels.append(r)
+                else:
+                    x = rnd(o.d, n_cols)
+                    for yy in (None, rnd(o.d, cols.shape[0])):
+                        a, r = rel_err(
+                            ell_spmv.ell_block_spmv(cols, vals, R, x, n_cols,
+                                                    yy),
+                            ell_spmv.ell_block_spmv_plain(cols, vals, R, x,
+                                                          n_cols, yy))
+                        brec[kd]["max_abs_err"] = max(
+                            brec[kd]["max_abs_err"], a)
+                        rels.append(r)
+                n_checked[kd] += 1
+                line.append(f"{kd} {max(rels)} (tol {tol})")
+                _require(max(rels) <= tol, f"{tag} {name} {kd}: kernel "
+                         f"disagrees with plain ({rels} > {tol})")
+            print(f"[surface-kernels] {tag}: {name:22s} {kind:6s} ELL "
+                  f"{tuple(vals0.shape)}, applied in "
+                  f"{ell_spmv._NAMES[vals0.dtype]}: max rel err "
+                  + ", ".join(line), flush=True)
+    print(f"[surface-kernels] operators checked: {json.dumps(n_checked)}",
+          flush=True)
+    del nsp, ch, mms
+    step_mesh = gmg.build_hierarchy(backward_step_mesh(0), 2).fine
+    chan_mesh = channel_mesh(1, length=4.0)
+    files = [(nsp_vtk, step_mesh)] + [
+        (os.path.join(tmp, f"channel_{k:04d}.vtk"), chan_mesh)
+        for k in (5, 10)]
+    for path, mesh in files:
+        with open(path) as f:
+            txt = f.read()
+        pts = re.search(r"^POINTS (\d+) float$", txt, re.M)
+        cells = re.search(r"^CELLS (\d+) (\d+)$", txt, re.M)
+        rows = txt.split("POINTS")[1].splitlines()[1:1 + mesh.num_vertices]
+        print(f"[surface] {os.path.basename(path)}: POINTS {pts.group(1)} "
+              f"CELLS {cells.group(1)} (mesh {mesh.num_vertices} vertices, "
+              f"{mesh.num_cells} cells), {len(txt)} bytes", flush=True)
+        _require(int(pts.group(1)) == mesh.num_vertices
+                 and int(cells.group(1)) == mesh.num_cells
+                 and int(cells.group(2)) == 4 * mesh.num_cells
+                 and all(len(r.split()) == 3 for r in rows),
+                 f"{path} does not parse to the mesh")
+    shutil.rmtree(tmp)
+    done("surface", t0)
+
     # ``launches``: counts of the paths' own runs, each read just after a
-    # run that began with the counts at 0 (``paths`` splits them).  The ELL
-    # paths are f64 throughout: each ELL record is its f64 instantiation with
-    # the times of the cavity's headline operator, and the f32 one, checked
-    # in phases 6 and 9 but launched by no path, is nested in it; the times
-    # at the cylinder's level-2 shapes are nested under ``cylinder``
+    # run that began with the counts at 0 (``paths`` splits them).  Each ELL
+    # record is its f64 instantiation with the times of the cavity's
+    # headline operator; the f32 one, launched by the mixed mode of
+    # navier_stokes_pcd alone and checked in phases 6, 9 and 31 (31 at that
+    # path's shapes), is nested in it; the times at the cylinder's level-2
+    # shapes are nested under ``cylinder``
     cyl_paths = (f"cylinder l{CYL_LEVEL} 2D-1",
                  f"cylinder l{CYL_LEVEL} 2D-2 {CYL_STEPS} steps")
     hr_path = f"step l{HR_LEVEL} config 5, Re 2000 and 5000"
     s3_path = (f"3D step l{S3_LEVEL} length {S3_LENGTH:g} config 4, "
                f"{S3_STEPS} Picard steps")
     cf_path = f"custom forms step l{CF_LEVEL} BRM2"
+    bsr_paths = {"step l2 timed solve": timed, **ir_paths}
     kernels_line = [{"name": f"bsr_spmv_{k}", "route": "cuda",
                      "source": SOURCE, "replaces": REPLACES[k],
-                     "launches": timed[k], "path": "step l2 timed solve",
+                     "launches": sum(n[k] for n in bsr_paths.values()),
+                     "paths": {name: n[k] for name, n in bsr_paths.items()},
                      **rec[k]} for k in ("f64", "f32")]
+    # K3 launches of phase 31's paths (MMS in this process, the entry
+    # points from their own launch lines)
+    e31 = {kind: {dt: sum(c[kind][dt] for c in ell_paths.values())
+                  for dt in ("f64", "f32")}
+           for kind in ("ell_spmv", "ell_block_spmv")}
     kernels_line.append({
         "name": "ell_spmv", "route": "cuda", "source": ELL_SOURCE,
         "replaces": ELL_REPLACES,
         "launches": cavity_launches["ell_f64"] + d1[0] + d2[0] + d14[0]
-        + d18[0] + d21[0],
+        + d18[0] + d21[0] + e31["ell_spmv"]["f64"],
         "paths": {f"cavity l{cavity.LEVEL} continuation":
                   cavity_launches["ell_f64"],
                   cyl_paths[0]: d1[0], cyl_paths[1]: d2[0],
-                  hr_path: d14[0], s3_path: d18[0], cf_path: d21[0]},
+                  hr_path: d14[0], s3_path: d18[0], cf_path: d21[0],
+                  **{k: c["ell_spmv"]["f64"] for k, c in ell_paths.items()}},
         "dtype": "f64", **erec["f64"],
         "cylinder": crec["f64"]["single"], "step3d": s3rec["single"],
         "custom_uu": cfrec,
         "f32": {"launches": cavity_launches["ell_f32"] + d1[2] + d2[2]
-                + d14[2] + d18[2] + d21[2],
+                + d14[2] + d18[2] + d21[2] + e31["ell_spmv"]["f32"],
                 **erec["f32"], "cylinder": crec["f32"]["single"]}})
     kernels_line.append({
         "name": "ell_block_spmv", "route": "cuda", "source": ELL_SOURCE,
         "replaces": ELL_REPLACES,
         "launches": cavity_launches["ell_block_f64"] + d1[1] + d2[1]
-        + d14[1] + d18[1],
+        + d14[1] + d18[1] + e31["ell_block_spmv"]["f64"],
         "paths": {f"cavity l{cavity.LEVEL} continuation":
                   cavity_launches["ell_block_f64"],
                   cyl_paths[0]: d1[1], cyl_paths[1]: d2[1], hr_path: d14[1],
-                  s3_path: d18[1]},
+                  s3_path: d18[1],
+                  **{k: c["ell_block_spmv"]["f64"]
+                     for k, c in ell_paths.items()}},
         "dtype": "f64", **brec["f64"],
         "cylinder": {k: v for k, v in crec["f64"].items() if k != "single"},
         "highre": hrec,
         "step3d": {k: s3rec[k] for k in ("block", "block_with_R")},
         "f32": {"launches": cavity_launches["ell_block_f32"] + d1[3] + d2[3]
-                + d14[3] + d18[3],
+                + d14[3] + d18[3] + e31["ell_block_spmv"]["f32"],
                 **brec["f32"],
                 "cylinder": {k: v for k, v in crec["f32"].items()
                              if k != "single"}}})

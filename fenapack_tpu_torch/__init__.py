@@ -9,8 +9,9 @@ multigrid, dense and factorization-free subsolves, Picard and Newton
 drivers (with Anderson mixing on the Picard full solve, damping on the
 others), GCRO-DR recycling across solves, SUPG streamline diffusion
 (system and preconditioner), theta-scheme and BDF2 time stepping,
-drag/lift functionals, the model entry points (``models``) and the
-custom-form API (the mini-UFL ``forms`` with ``PCDAssembler``,
+drag/lift functionals, mixed-precision iterative refinement, batched
+right-hand sides, VTK export and stage timers, the model entry points
+(``models``) and the custom-form API (the mini-UFL ``forms`` with ``PCDAssembler``,
 ``PCDKrylovSolver`` and ``PCDNewtonSolver``).  The JAX package
 ``fenapack_tpu`` is the reference; the layout of this package mirrors it
 module by module.
@@ -33,7 +34,7 @@ from .ops.sparse import (ELL, BlockELL, SparsityPattern, BlockSparsityPattern,
                          pattern_from_dofmaps)
 from .solvers.config import (SolverConfig, KrylovConfig, PCDConfig,
                              SubsolveConfig, MultigridConfig, VelocityConfig,
-                             override, overrides)
+                             override, overrides, env_overrides)
 from .solvers.krylov import (fgmres, fgmres_dr, FGMRESResult, RecycleSpace,
                              empty_recycle, refresh_recycle)
 from .solvers.pcd import make_pcd_apply
@@ -47,7 +48,8 @@ from .solvers import gmg
 from .fem import forms
 from .utils.functionals import (boundary_reaction, eval_p1, p1_point_weights,
                                 make_device_functional)
-from .utils.io import save_checkpoint, load_checkpoint
+from .utils.io import save_checkpoint, load_checkpoint, save_vtk
+from .utils.timing import Timings, GLOBAL_TIMINGS, device_trace
 from . import models
 
 __version__ = "0.1.0"
@@ -64,6 +66,7 @@ __all__ = [
     "BlockSparsityPattern", "pattern_from_dofmaps",
     "SolverConfig", "KrylovConfig", "PCDConfig", "SubsolveConfig",
     "MultigridConfig", "VelocityConfig", "override", "overrides",
+    "env_overrides",
     "fgmres", "fgmres_dr", "FGMRESResult", "RecycleSpace", "empty_recycle",
     "refresh_recycle", "make_pcd_apply", "make_fieldsplit_upper",
     "OseenSolver",
@@ -72,4 +75,5 @@ __all__ = [
     "PCDNewtonSolver", "gmg", "forms", "models",
     "boundary_reaction", "eval_p1", "p1_point_weights",
     "make_device_functional", "save_checkpoint", "load_checkpoint",
+    "save_vtk", "Timings", "GLOBAL_TIMINGS", "device_trace",
 ]

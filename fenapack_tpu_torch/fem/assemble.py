@@ -54,8 +54,10 @@ class NSAssembler:
     (3D callers pass ``quad_degree=4``, as the JAX package's do).
 
     ``block_size`` selects the block-sparse (BSR) layout with that tile
-    size; ``block_dtype`` the storage dtype of the compute-precision block
-    constants (``const``); ``hi_block`` keeps the high-precision operators
+    size; ``block_dtype`` the storage dtype of the compute-precision
+    constants (``const``, in either layout: an f64 assembler with f32
+    ``const`` serves an f32 preconditioner around the f64 outer matvec and
+    residual of ``const_hi``); ``hi_block`` keeps the high-precision operators
     (``const_hi``, the outer matvec and residual) in the same block layout
     instead of ELL.  ``p1_only`` builds the pressure space alone (pattern,
     Ap, Mp), as the pressure multigrid levels need.  Velocity layout:
@@ -137,13 +139,14 @@ class NSAssembler:
             self.pat_p2_hi, self.pat_p1_hi = self.pat_p2, self.pat_p1
             self.pat_div_hi, self.pat_divT_hi = self.pat_div, self.pat_divT
 
+        self._load_u = None              # body-force load (set_body_force)
         self.n_inflow_facets = 0
         if not self._p1_only:
             self._flat = self._flat_tables()
             self._setup_facets()
         t1 = time.perf_counter()
 
-        if block_size:
+        if block_size or block_dtype is not None:
             self.const_hi = self._assemble_constant(hi=True)
             self.const = self._assemble_constant(hi=False,
                                                  out_dtype=block_dtype)
@@ -467,9 +470,13 @@ class NSAssembler:
                  hi: bool = True, supg: bool = False,
                  compute32: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Steady NS residual with zero body force and natural outflow:
-        ``ru_a = A1(u) u_a + DT_a p``, ``rp = sum_a D_a u_a`` (BC masking
-        by the caller).  ``p=None`` leaves the pressure gradient out: the
+        """Steady NS residual with natural outflow: ``ru_a = A1(u) u_a +
+        DT_a p - f_a``, ``rp = sum_a D_a u_a`` (BC masking by the caller),
+        with the load ``f`` of :meth:`set_body_force` (zero when none is
+        set).  A time-independent load enters every time scheme as it is
+        (it is state-independent, so no Jacobian changes); under ``supg``
+        it is not test-weighted by the streamline term, as in the JAX
+        package.  ``p=None`` leaves the pressure gradient out: the
         convection-diffusion part alone, the theta-weighted piece of the
         unsteady residuals.  ``hi`` selects the high-precision operators.
         ``supg`` adds the streamline diffusion of :meth:`supg_values` at the
@@ -484,8 +491,41 @@ class NSAssembler:
         ru = torch.cat([A1.mv(comps[a]) for a in range(self.dim)])
         if p is not None:
             ru = ru + self.grad_p(p, hi=hi)
+        if self._load_u is not None:
+            ru = ru - self._load_u.to(ru.dtype)
         rp = sum(c.D[a].mv(comps[a]) for a in range(self.dim))
         return ru, rp
+
+    def set_body_force(self, f) -> None:
+        """Install a body force: :meth:`residual` gains ``-int f . v dx``.
+
+        ``f(x: (k, d)) -> (k, d)`` is evaluated at the quadrature points of
+        every cell (triangles or tets) and integrated against the P2 basis
+        on the host in NumPy, summed with ``np.add.at`` in the JAX package's
+        order; the load vector is held on the assembler's device in its
+        dtype.  The port's meshes carry no padding rows, so every row of
+        the load is a real dof."""
+        d, mesh = self.dim, self.mesh
+        if d == 2:
+            qp, qw = el.triangle_quadrature(self.quad_degree)
+            phi2, _ = el.p2_basis(qp)                 # (nq, nb2)
+        else:
+            qp, qw = el3.tet_quadrature(self.quad_degree)
+            phi2, _ = el3.p2_basis(qp)
+        nc = mesh.num_cells
+        v = mesh.vertices[mesh.cells]                 # (nc, d+1, d)
+        v0 = v[:, 0]
+        E = v[:, 1:] - v0[:, None]                    # (nc, d, d) edges
+        adet = np.abs(np.linalg.det(
+            np.stack([E[:, i] for i in range(d)], axis=2)))
+        xq = v0[:, None, :] + np.einsum("qk,nkd->nqd", qp, E)
+        fq = np.asarray(f(xq.reshape(-1, d))).reshape(nc, len(qw), d)
+        elem = np.einsum("n,q,nqa,qi->nai", adet, qw, fq, phi2)
+        b = np.zeros(d * self.n2)
+        for a in range(d):
+            np.add.at(b, a * self.n2 + self._cd2_np, elem[:, a, :])
+        self._load_u = torch.as_tensor(b, dtype=self.dtype,
+                                       device=self.device)
 
     def grad_p(self, p: torch.Tensor, hi: bool = True) -> torch.Tensor:
         """The pressure gradient ``B^T p`` stacked over the components

@@ -1,5 +1,6 @@
-"""Measurement helpers for runs on one CUDA GPU (``chip_smoke.py`` and
-``trace.py``): kernel timing by CUDA events, the device events of a
+"""Measurement helpers for runs on one CUDA GPU (``chip_smoke.py``,
+``trace.py`` and the entry points' launch lines): kernel launch counts,
+kernel timing by CUDA events, the device events of a
 profile, the least time the card could take for a product, and the
 cuSPARSE products that serve as yardsticks beside the hand-written kernels.
 The solvers never call anything here.
@@ -15,6 +16,15 @@ HBM_BPS = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # read before each call that device_ms times: five times the 50 MB L2
 L2_FLUSH_BYTES = 256 << 20
+
+
+def launch_counts() -> dict:
+    """The kernel launch counters of this process, by wrapper and dtype
+    (the plain versions count nothing, so a run on the CPU reads 0)."""
+    from .ops import bsr_spmv, ell_spmv
+    return {"bsr_spmv": dict(bsr_spmv.launches),
+            "ell_spmv": dict(ell_spmv.launches),
+            "ell_block_spmv": dict(ell_spmv.block_launches)}
 
 
 def cuda_ms(fn, reps: int = 7, inner: int = 20) -> float:

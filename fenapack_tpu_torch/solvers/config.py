@@ -2,12 +2,15 @@
 
 The subset of ``fenapack_tpu/solvers/config.py`` (plain dataclasses) that
 the port reads: every field here changes what a solve does.  The JAX
-package's other options (mixed-precision IR rounds, split assembly,
-``hi_matvec``) come back with the code that ports them.
+package's TPU workarounds (``split_assembly``, ``ds_basis``,
+``df32_matvec``, the pressure multigrid's ``smoother``) are not carried, so
+overriding them raises.  :func:`env_overrides` applies ``FENAPACK_CFG``.
 """
 from __future__ import annotations
 
+import ast
 import dataclasses
+import os
 from typing import Any, Optional, Tuple
 
 
@@ -63,11 +66,31 @@ class SubsolveConfig(MultigridConfig):
 @dataclasses.dataclass(frozen=True)
 class KrylovConfig:
     """The outer FGMRES solve around the compute-dtype preconditioner.
-    ``rtol`` is the relative tolerance of :meth:`OseenSolver.solve`; the
-    high-precision solve of :meth:`OseenSolver.make_ir_solve` takes its own
+    ``rtol`` is the relative tolerance of :meth:`OseenSolver.solve` and the
+    floor of each round's tolerance in the multi-round refinement of
+    :meth:`OseenSolver.make_ir_solve`, which takes its own overall
     ``rtol``."""
     rtol: float = 1e-8
     maxiter: int = 100
+    # the high-precision solve of OseenSolver.make_ir_solve and solve_ir:
+    # True runs ONE f64 FGMRES round (f64 basis, Givens and residual
+    # estimate, f64 system matvec) around the compute-dtype
+    # preconditioner; False runs mixed-precision iterative refinement,
+    # rounds of compute-dtype FGMRES on the scaled f64 true residual.  The
+    # JAX package defaults to False (f64 is emulated on its TPU); the port
+    # defaults to True because FP64 is native on the card, and every path
+    # ported earlier runs the single-round solve.
+    hi_krylov: bool = True
+    # multi-round mode: the outer matvec with the f64 operator (cast
+    # around), while the preconditioner and the Krylov algebra stay in the
+    # compute dtype
+    hi_matvec: bool = False
+    # multi-round schedule: the assumed per-round attainable reduction of
+    # the TRUE residual (raised online when a round falls more than 4x
+    # short of its target) and the factor by which each round's estimate
+    # target undershoots its true target
+    ir_attainable: float = 3e-5
+    ir_safety: float = 0.4
     # selective reorthogonalization threshold (0.0 = unconditional CGS2).
     # eta > 0 runs the second Gram-Schmidt pass only when the first
     # projection shrank |w| below eta * |w_pre| (Kahan-Parlett "twice is
@@ -87,10 +110,11 @@ class KrylovConfig:
     # attainable nonlinear floor (~1e-7 relative with f32 integrals), so
     # keep False when converging past 1e-8.
     hi_res_f32: bool = False
-    # GCRO-DR recycle-space dimension (0 = off): the high-precision solve
-    # of OseenSolver.make_ir_solve deflates the slowest Krylov directions
-    # of the previous solve (previous Picard or time step: a nearby
-    # operator), re-bound to the new operator by refresh_recycle
+    # GCRO-DR recycle-space dimension (0 = off): the solves of
+    # OseenSolver.make_ir_solve deflate the slowest Krylov directions of the
+    # previous solve (previous round, Picard or time step: a nearby
+    # operator), re-bound to the new operator by refresh_recycle; the space
+    # lives in f64 under hi_krylov, else in the compute dtype
     recycle: int = 0
 
 
@@ -135,4 +159,21 @@ def override(cfg: Any, key: str, value: Any) -> Any:
 def overrides(cfg: Any, mapping: dict) -> Any:
     for k, v in mapping.items():
         cfg = override(cfg, k, v)
+    return cfg
+
+
+def env_overrides(cfg: Any) -> Any:
+    """Apply ``FENAPACK_CFG``: comma-separated dotted ``key=value`` pairs,
+    values through ``ast.literal_eval`` (else kept as strings), e.g.
+    ``FENAPACK_CFG=krylov.hi_krylov=False,krylov.maxiter=120``.  The entry
+    points apply it last, so any solver option can be changed from the
+    command line."""
+    spec = os.environ.get("FENAPACK_CFG", "")
+    for item in filter(None, (s.strip() for s in spec.split(","))):
+        k, _, v = item.partition("=")
+        try:
+            val = ast.literal_eval(v)
+        except (ValueError, SyntaxError):
+            val = v
+        cfg = override(cfg, k.strip(), val)
     return cfg

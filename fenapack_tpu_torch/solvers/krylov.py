@@ -47,6 +47,9 @@ class FGMRESResult(NamedTuple):
     converged: bool
     bnorm: float
     host_syncs: int
+    # refinement rounds behind the result (OseenSolver.make_ir_solve's
+    # multi-round mode); a single FGMRES solve is one
+    rounds: int = 1
 
 
 def _rotate(h: np.ndarray, cs: np.ndarray, sn: np.ndarray, k: int):

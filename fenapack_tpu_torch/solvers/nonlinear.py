@@ -8,7 +8,10 @@
     GCRO-DR recycle space threaded from step to step under
     ``krylov.recycle`` (the headline benchmark's loop);
   * :meth:`NonlinearSolver.solve_fused`: the same loop without Anderson
-    mixing, returning a :class:`NonlinearResult` (the high-Re path).
+    mixing, returning a :class:`NonlinearResult` (the high-Re path);
+  * :meth:`NonlinearSolver.solve_anderson`: Picard steps on the
+    high-precision solve with type-II Anderson mixing over a window of m
+    iterates, the Gram matrix solved on the host in f64.
 
 Under ``system_supg`` the residual is the SUPG-stabilized one, as the
 Picard operator is.
@@ -45,6 +48,8 @@ class FullSolveResult:
     converged: bool
     lin_rel: List[float]            # true relative residual of each solve
     host_syncs: int                 # host reads of device values
+    # refinement rounds of each linear solve (1 under krylov.hi_krylov)
+    rounds: List[int] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -182,7 +187,7 @@ class NonlinearSolver:
             w = (self.initial_state() if w0 is None else w0).to(
                 self.asm.dtype)
             dev, dt_hi = w.device, w.dtype
-            iters, res, lin_rel = [], [], []
+            iters, res, lin_rel, rounds = [], [], [], []
             syncs, r0, k, converged, rec = 0, 1.0, 0, False, None
             if m >= 2:
                 Fh = torch.zeros((m, self.n), dtype=dt_hi, device=dev)
@@ -202,6 +207,7 @@ class NonlinearSolver:
                 lin_rel.append(float(rn_lin) / max(lin.bnorm, 1e-300))
                 syncs += 1 + lin.host_syncs
                 iters.append(int(it))
+                rounds.append(lin.rounds)
                 g = w + damping * x
                 if m >= 2:
                     Fh = torch.roll(Fh, -1, dims=0)
@@ -231,5 +237,68 @@ class NonlinearSolver:
                 k += 1
             return FullSolveResult(w=w, steps=k, iters=iters, res=res,
                                    converged=converged, lin_rel=lin_rel,
-                                   host_syncs=syncs)
+                                   host_syncs=syncs, rounds=rounds)
         return full
+
+    def solve_anderson(self, w0: Optional[torch.Tensor] = None, *,
+                       m: int = 3, rtol: float = 1e-5,
+                       rtol_lin: float = 1e-8,
+                       max_steps: int = 25) -> NonlinearResult:
+        """Anderson-accelerated Picard (type-II mixing, window ``m``), the
+        port of the JAX package's ``solve_anderson``.
+
+        The Picard map is ``g(w) = w + x``, ``x`` the high-precision solve
+        (:meth:`OseenSolver.make_ir_solve`) of ``J(w) x = -F(w)``; the
+        GCRO-DR space rides from step to step under ``krylov.recycle``.
+        Over the last ``m`` iterates the fixed-point residuals ``f = g(w) -
+        w`` and their differences ``dF`` give the normal equations ``G
+        gamma = dF f`` (the Gram matrix of the history's real rows, read to
+        the host in f64 in one copy, regularized by ``1e-12 trace(G)``; a
+        singular matrix gives gamma = 0), and ``w <- g - sum gamma_j dG_j``.
+        Stops when ``|F| <= rtol |F_0|``; the state is carried in the
+        assembler's precision."""
+        t0 = time.perf_counter()
+        ir = self.oseen.make_ir_solve(rtol_lin)
+        n_u = self.n_u
+        w = (self.initial_state() if w0 is None else w0).to(self.asm.dtype)
+        hist_f, hist_g = [], []
+        res_hist, it_hist, lin_rel = [], [], []
+        r0, converged, rec = None, False, None
+        for _ in range(max_steps):
+            F, rn = self.residual_of(w)
+            rn = float(rn)
+            res_hist.append(rn)
+            if r0 is None:
+                r0 = rn if rn > 0 else 1.0
+            if rn <= max(rtol * r0, 1e-300):
+                converged = True
+                break
+            x, it, rn_lin, lin, rec = ir(w[:n_u], -F, rec)
+            it_hist.append(int(it))
+            lin_rel.append(float(rn_lin) / max(lin.bnorm, 1e-300))
+            g = w + x
+            f = g - w
+            hist_f.append(f)
+            hist_g.append(g)
+            if len(hist_f) > m:
+                hist_f.pop(0)
+                hist_g.pop(0)
+            if len(hist_f) < 2:
+                w = g
+                continue
+            dF = torch.stack([b - a for a, b in zip(hist_f, hist_f[1:])])
+            dG = [b - a for a, b in zip(hist_g, hist_g[1:])]
+            j = dF.shape[0]
+            Gc = torch.cat([(dF @ dF.T).reshape(-1), dF @ f]).cpu().numpy()
+            G, c = Gc[:j * j].reshape(j, j), Gc[j * j:]
+            lam = 1e-12 * max(np.trace(G), 1e-30)
+            try:
+                gam = np.linalg.solve(G + lam * np.eye(j), c)
+            except np.linalg.LinAlgError:
+                gam = np.zeros(j)
+            w = g - sum(float(gi) * dgi for gi, dgi in zip(gam, dG))
+        return NonlinearResult(w=w, nonlinear_res=res_hist,
+                               linear_iters=it_hist, linear_resnorms=[],
+                               converged=converged,
+                               wall_time=time.perf_counter() - t0,
+                               lin_rel=lin_rel)

@@ -11,16 +11,29 @@ number of Jacobi, Chebyshev or minimal-residual sweeps.  ``theta`` and
 multigrid and the PCD apply (``Mp/dt`` in Fp).  SUPG streamline diffusion
 enters the system operator under ``system_supg`` (before the theta
 combination) and the preconditioner's velocity operator alone under
-``jpc_supg``.  Two solves: :meth:`OseenSolver.solve`, FGMRES in the compute
-dtype to ``krylov.rtol``, and the single-round high-precision solve of
-:meth:`make_ir_solve` (the JAX package's ``krylov.hi_krylov``): f64 FGMRES
-with the f64 system matvec around a preconditioner in the compute dtype,
-with GCRO-DR recycling across solves under ``krylov.recycle``.
+``jpc_supg``.  The solves:
+
+  * :meth:`OseenSolver.solve`, FGMRES in the compute dtype to
+    ``krylov.rtol``, and :meth:`OseenSolver.solve_batch`, the same for many
+    right-hand sides on one operator setup;
+  * :meth:`OseenSolver.make_ir_solve`, the high-precision solve to a TRUE
+    relative residual: under ``krylov.hi_krylov`` (the port's default) one
+    f64 FGMRES round with the f64 system matvec around the compute-dtype
+    preconditioner; otherwise mixed-precision iterative refinement, rounds
+    of compute-dtype FGMRES on the scaled f64 true residual (``hi_matvec``:
+    the outer matvec in f64).  GCRO-DR recycling across rounds and solves
+    under ``krylov.recycle``;
+  * :meth:`OseenSolver.solve_ir`, the host-loop refinement with the history
+    of true residual norms, and :meth:`make_true_residual`.
+
+The round schedule is Python float arithmetic on the host: one host sync
+per round (the true residual's norm) on top of FGMRES's one per iteration.
 
 Monolithic vector layout: ``x = [u_x (n2); u_y (n2)[; u_z (n2)]; p (n1)]``.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import numpy as np
@@ -31,7 +44,8 @@ from ..ops import subsolve
 from ..ops.sparse import ELL
 from .config import SolverConfig, SubsolveConfig
 from .fieldsplit import make_fieldsplit_upper
-from .krylov import empty_recycle, fgmres, fgmres_dr, refresh_recycle
+from .krylov import (FGMRESResult, empty_recycle, fgmres, fgmres_dr,
+                     refresh_recycle)
 from .pcd import make_pcd_apply
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -312,6 +326,32 @@ class OseenSolver:
                                      lambda r_p: pcd(kp, r_p), bt_mv,
                                      self.free_u)
 
+    def _compute_pipeline(self, wind: torch.Tensor):
+        """``(matvec, pc)`` in the compute dtype at ``wind``, from one
+        assembly of the operator values."""
+        wind = wind.to(self.dtype)
+        values = self._operator_values(wind)
+        return self._matvec_factory(*values), self._pipeline(wind, values)
+
+    def _hi_matvec(self, wind: torch.Tensor):
+        """The f64 system matvec with the operator assembled at ``wind``."""
+        A1h, Rh = self._operator_values_raw(wind.to(self.asm.dtype), hi=True)
+        return self._matvec_factory(A1h, Rh, hi=True)
+
+    def _krylov(self, matvec, pc, b: torch.Tensor, rtol: float, rec=None):
+        """One FGMRES solve of ``b`` in b's dtype to ``rtol`` around the
+        compute-dtype ``pc`` (cast to the compute dtype and back around each
+        apply when b's dtype differs); with a recycle space ``rec``
+        GCRO-DR (the caller re-binds ``rec`` to ``matvec``).  Every solve of
+        this class goes through here.  Returns ``(result, rec)``."""
+        kcfg = self.config.krylov
+        if b.dtype != self.dtype:
+            pc = (lambda p: lambda r: p(r.to(self.dtype)).to(b.dtype))(pc)
+        kw = dict(maxiter=kcfg.maxiter, rtol=rtol, reorth_eta=kcfg.reorth_eta)
+        if rec is None:
+            return fgmres(matvec, pc, b, **kw), None
+        return fgmres_dr(matvec, pc, b, rec, **kw)
+
     # -------------------------------------------------------------- #
     def solve(self, wind: torch.Tensor, b: torch.Tensor):
         """Solve the Oseen system linearized at ``wind`` with right-hand
@@ -319,49 +359,174 @@ class OseenSolver:
         most ``krylov.maxiter`` iterations.  Returns the
         :class:`FGMRESResult` and the system matvec it solved with."""
         kcfg = self.config.krylov
-        wind, b = wind.to(self.dtype), b.to(self.dtype)
-        values = self._operator_values(wind)
-        matvec = self._matvec_factory(*values)
-        pc = self._pipeline(wind, values)
-        res = fgmres(matvec, pc, b, maxiter=kcfg.maxiter, rtol=kcfg.rtol,
-                     reorth_eta=kcfg.reorth_eta)
+        matvec, pc = self._compute_pipeline(wind)
+        res, _ = self._krylov(matvec, pc, b.to(self.dtype), kcfg.rtol)
         return res, matvec
 
-    def initial_recycle(self):
-        """An empty GCRO-DR recycle space of ``krylov.recycle`` directions,
-        in the assembler's (high) precision, where :meth:`make_ir_solve`
-        keeps it."""
-        return empty_recycle(self.config.krylov.recycle, self.n,
-                             self.asm.dtype, self.asm.device)
+    def solve_batch(self, wind: torch.Tensor, B: torch.Tensor):
+        """Solve the system linearized at ``wind`` for every row of ``B``
+        ``(nb, n)``: the operator values, the matvec and the preconditioner
+        are built once, then one compute-dtype FGMRES runs per row, each
+        equal bit for bit to :meth:`solve` of that row.  Returns ``(X,
+        iters, converged)``: X ``(nb, n)`` and two NumPy arrays of length
+        nb."""
+        kcfg = self.config.krylov
+        matvec, pc = self._compute_pipeline(wind)
+        # a fresh copy of each row: a row view of B starts at an offset of
+        # i * n elements, where vectorized device loads (and with them the
+        # order of a reduction) may differ from a tensor of its own
+        out = [self._krylov(matvec, pc, b.to(self.dtype).clone(),
+                            kcfg.rtol)[0] for b in B]
+        return (torch.stack([r.x for r in out]),
+                np.array([r.iters for r in out]),
+                np.array([r.converged for r in out]))
 
-    def make_ir_solve(self, rtol: float = 1e-8):
+    def initial_recycle(self):
+        """An empty GCRO-DR recycle space of ``krylov.recycle`` directions
+        in the dtype of the Krylov solve it deflates: the assembler's (f64)
+        under ``krylov.hi_krylov``, else the compute dtype."""
+        kcfg = self.config.krylov
+        dt = self.asm.dtype if kcfg.hi_krylov else self.dtype
+        return empty_recycle(kcfg.recycle, self.n, dt, self.asm.device)
+
+    def make_ir_solve(self, rtol: float = 1e-8, max_rounds: int = 8):
         """Return ``ir(wind, b, rec=None) -> (x, iters, true_resnorm,
-        result, rec)``: one f64 FGMRES solve to ``rtol`` with the
-        high-precision system matvec and the compute-dtype preconditioner
-        (cast f64 -> compute -> f64 around each apply), then the true
-        residual in f64.  With ``krylov.recycle > 0`` the solve is GCRO-DR:
-        the recycle space ``rec`` of the previous solve (None: an empty one)
-        is re-bound to this operator, deflates the solve, and the new space
-        is returned as ``rec``; otherwise ``rec`` comes back None."""
+        result, rec)``, a solve to a true relative residual of ``rtol``
+        with the residual in f64.
+
+        Under ``krylov.hi_krylov``: one f64 FGMRES solve to ``rtol`` with
+        the high-precision system matvec and the compute-dtype
+        preconditioner.  Otherwise mixed-precision iterative refinement of
+        at most ``max_rounds`` rounds, the JAX package's ``hi_krylov=False``
+        loop: the carry is the f64 true residual ``(r, |r|)`` of ``x``; each
+        round solves ``r / |r|`` in the compute dtype to ``rtol_k =
+        clip(target * ir_safety, krylov.rtol, 1e-2)``, where ``target``
+        splits the remaining reduction evenly over ``ceil(log(needed) /
+        log(att))`` rounds, and ``att`` (from ``ir_attainable``) rises to
+        1.5 times the achieved reduction whenever a round falls more than 4x
+        short of its target.  ``hi_matvec`` runs the rounds' outer matvec in
+        f64, cast around.
+
+        With ``krylov.recycle > 0`` the solve is GCRO-DR: the recycle space
+        ``rec`` (None: an empty one) is re-bound to this operator, deflates
+        the solve (every round), and the new space is returned as ``rec``;
+        otherwise ``rec`` comes back None.  ``iters`` is the total over
+        rounds, ``result`` the last round's :class:`FGMRESResult` with
+        ``bnorm`` = |b|, ``host_syncs`` summed over the solve, ``rounds``
+        the number of rounds and ``converged`` the true residual's test."""
         dt_hi = self.asm.dtype
         kcfg = self.config.krylov
 
-        def ir(wind: torch.Tensor, b: torch.Tensor, rec=None):
-            A1h, Rh = self._operator_values_raw(wind.to(dt_hi), hi=True)
-            matvec_hi = self._matvec_factory(A1h, Rh, hi=True)
+        def single(wind, b, rec):
+            matvec_hi = self._hi_matvec(wind)
             pc = self._pipeline(wind.to(self.dtype))
-            pc_hi = lambda r: pc(r.to(self.dtype)).to(dt_hi)
             b64 = b.to(dt_hi)
+            if kcfg.recycle and rec is None:
+                rec = self.initial_recycle()
+            if rec is not None:
+                # the operator changed since the space was built
+                rec = refresh_recycle(matvec_hi, rec)
+            res, rec = self._krylov(matvec_hi, pc, b64, rtol, rec)
+            rn = torch.linalg.norm(b64 - matvec_hi(res.x))
+            return res.x, res.iters, rn, res, rec
+
+        def rounds(wind, b, rec):
+            matvec_hi = self._hi_matvec(wind)
+            matvec, pc = self._compute_pipeline(wind)
+            if kcfg.hi_matvec:
+                matvec = lambda x: matvec_hi(x.to(dt_hi)).to(self.dtype)
             if kcfg.recycle:
                 if rec is None:
                     rec = self.initial_recycle()
-                rec = refresh_recycle(matvec_hi, rec)
-                res, rec = fgmres_dr(matvec_hi, pc_hi, b64, rec,
-                                     maxiter=kcfg.maxiter, rtol=rtol,
-                                     reorth_eta=kcfg.reorth_eta)
-            else:
-                res = fgmres(matvec_hi, pc_hi, b64, maxiter=kcfg.maxiter,
-                             rtol=rtol, reorth_eta=kcfg.reorth_eta)
-            rn = torch.linalg.norm(b64 - matvec_hi(res.x))
-            return res.x, res.iters, rn, res, rec
+                # the operator changed since the space was built
+                rec = refresh_recycle(matvec, rec)
+            b64 = b.to(dt_hi)
+            rn_t = torch.linalg.norm(b64)
+            bnorm = rn = float(rn_t)
+            syncs, tol = 1, max(rtol * bnorm, 1e-300)
+            x, r = torch.zeros_like(b64), b64
+            att, total, k, res = kcfg.ir_attainable, 0, 0, None
+            while k < max_rounds and rn > tol:
+                scale = rn if rn > 0 else 1.0
+                needed = min(max(tol / scale, 1e-30), 1.0)
+                n_r = max(math.ceil(math.log(needed) / math.log(att)), 1)
+                target = math.exp(math.log(needed) / n_r)
+                rtol_k = min(max(target * kcfg.ir_safety, kcfg.rtol), 1e-2)
+                res, rec = self._krylov(matvec, pc, (r / scale).to(self.dtype),
+                                        rtol_k, rec)
+                x = x + scale * res.x.to(dt_hi)
+                r = b64 - matvec_hi(x)
+                rn_t = torch.linalg.norm(r)
+                rn = float(rn_t)
+                syncs += 1 + res.host_syncs
+                achieved = rn / scale
+                if achieved > 4.0 * target:
+                    # the stall level is higher than believed: adopt it
+                    att = max(att, 1.5 * achieved)
+                total += res.iters
+                k += 1
+            if res is None:
+                res = FGMRESResult(x=x, iters=0,
+                                   resnorms=np.zeros(kcfg.maxiter + 1),
+                                   converged=True, bnorm=bnorm,
+                                   host_syncs=0)
+            res = res._replace(bnorm=bnorm, host_syncs=syncs, rounds=k,
+                               converged=rn <= tol)
+            return x, total, rn_t, res, rec
+
+        def ir(wind: torch.Tensor, b: torch.Tensor, rec=None):
+            return (single if kcfg.hi_krylov else rounds)(wind, b, rec)
         return ir
+
+    def make_true_residual(self):
+        """Return ``true_res(wind, x, b) -> (r, |r|)``: the residual of
+        ``x`` in the assembler's precision (f64), with the high-precision
+        operator assembled from ``wind``."""
+        dt_hi = self.asm.dtype
+
+        def true_res(wind: torch.Tensor, x: torch.Tensor, b: torch.Tensor):
+            r = b.to(dt_hi) - self._hi_matvec(wind)(x.to(dt_hi))
+            return r, torch.linalg.norm(r)
+        return true_res
+
+    def solve_ir(self, wind: torch.Tensor, b: torch.Tensor,
+                 rtol: float = 1e-8, atol: float = 0.0,
+                 max_rounds: int = 12):
+        """Iterative refinement on the host to ``max(rtol |b|, atol)`` in
+        the TRUE (f64) residual.  Returns ``(x, total_iters, hist)``, hist
+        the true residual norms at the start of each round (|b| first).
+        Under ``krylov.hi_krylov`` a round is one f64 FGMRES solve that
+        targets the whole remaining reduction (``max(tol / |r|, 1e-14)``);
+        otherwise a round is :meth:`solve` of ``r / |r|`` in the compute
+        dtype to ``krylov.rtol``.  The operators and the preconditioner are
+        built once per call."""
+        dt_hi = self.asm.dtype
+        kcfg = self.config.krylov
+        matvec_hi = self._hi_matvec(wind)
+        if kcfg.hi_krylov:
+            pc = self._pipeline(wind.to(self.dtype))
+        else:
+            matvec, pc = self._compute_pipeline(wind)
+        b_hi = b.to(dt_hi)
+        bnorm = float(torch.linalg.norm(b_hi))
+        tol = max(rtol * bnorm, atol)
+        x = torch.zeros_like(b_hi)
+        hist, total = [], 0
+        for rnd in range(max_rounds):
+            if rnd:
+                r = b_hi - matvec_hi(x)
+                rn = float(torch.linalg.norm(r))
+            else:
+                r, rn = b_hi, bnorm
+            hist.append(rn)
+            if rn <= tol:
+                break
+            if kcfg.hi_krylov:
+                res, _ = self._krylov(matvec_hi, pc, r / rn,
+                                      max(tol / rn, 1e-14))
+            else:
+                res, _ = self._krylov(matvec, pc, (r / rn).to(self.dtype),
+                                      kcfg.rtol)
+            total += int(res.iters)
+            x = x + rn * res.x.to(dt_hi)
+        return x, total, hist

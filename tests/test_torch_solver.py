@@ -356,13 +356,18 @@ def test_config_carries_only_what_the_port_reads():
         ("float32", "BRM2", "gmg")
     assert (cfg.krylov.maxiter, cfg.velocity.smooth_iters,
             cfg.velocity.cycles) == (bench.MAXITER, 3, 2)
-    for key in ("krylov.split_assembly", "krylov.hi_krylov",
-                "pcd.ap.smoother", "krylov.hi_matvec"):
+    for key in ("krylov.split_assembly", "pcd.ap.smoother",
+                "krylov.ds_basis", "krylov.df32_matvec"):
         with pytest.raises((TypeError, AttributeError)):
             overrides(SolverConfig(), {key: 1})
-    # SUPG, GCRO-DR and the factorization-free velocity sweeps are carried
-    # since they were ported
+    # SUPG, GCRO-DR, the factorization-free velocity sweeps and the
+    # multi-round refinement's options are carried since they were ported
     c = overrides(SolverConfig(), {"krylov.recycle": 8, "system_supg": True,
-                                   "jpc_supg": True, "velocity.iters": 30})
+                                   "jpc_supg": True, "velocity.iters": 30,
+                                   "krylov.hi_krylov": False,
+                                   "krylov.hi_matvec": True})
     assert (c.krylov.recycle, c.system_supg, c.jpc_supg,
-            c.velocity.iters) == (8, True, True, 30)
+            c.velocity.iters, c.krylov.hi_krylov,
+            c.krylov.hi_matvec) == (8, True, True, 30, False, True)
+    # the port's default is the single-round f64 solve
+    assert cfg.krylov.hi_krylov and not cfg.krylov.hi_matvec
