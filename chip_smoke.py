@@ -6,8 +6,9 @@
 Drives the port's paths on the card (the step benchmark, the lid-driven
 cavity, the DFG cylinder, the SUPG-stabilized step at high Reynolds
 number, the 3D backward-facing step, the custom-form API, the
-high-precision solves, Anderson Picard, the body force and the two demo
-entry points), in phases that each print one or more lines:
+high-precision solves, Anderson Picard, the body force, the two demo
+entry points and the multi-device ring path on 4 rank processes), in
+phases that each print one or more lines:
 
   1. device  - require CUDA; print ``nvidia-smi`` name and power limit.
   2. build   - compile every kernel library from csrc/ (one nvcc per source,
@@ -178,6 +179,33 @@ entry points), in phases that each print one or more lines:
                states and the MMS solution; the VTK files parse to their
                meshes' POINTS and CELLS.
 
+ 32. spmd-kernels - the multi-device ring path (``fenapack_tpu_torch.
+               parallel``) on 4 rank processes sharing the card (one gloo
+               group, halos and sums staged through host memory; the same
+               processes serve phases 32-34; they start with phase 29 and
+               build their solvers beside phases 29-31): on every rank, every
+               rank-local operator of the step-l2 Newton path with both
+               distributed multigrids (A1 + R of the solve and of every
+               velocity level, D, B^T, Kp, Mp, the Ap of every pressure
+               level, the P1 and P2 transfers) through K3 against the plain
+               version (f64, 1e-12); the times of rank 0's A1 block product
+               (2,881 rows over its 3,139 extended columns) beside the bound
+               and two cuSPARSE CSR products.
+ 33. spmd    - ``spmd_demo.rank_run`` on the 4 ranks: (a) the step at level
+               2, Re 100, Picard to 1e-5 with the distributed pressure and
+               velocity multigrids; (b) BASELINE config 5, the SUPG-stabilized
+               step at Re 2000, two damped (0.7) Picard steps; (c) the 3D
+               duct of ``__graft_entry__.py`` (29,988 dofs), three fused
+               Newton steps with SUPG.  Per case the counts, |F|, the true
+               relative residuals (every solve <= 5e-6 under its cap),
+               ms per FGMRES iteration, exchanges, all-reduces and
+               all-gathers per iteration and K3 launches per rank; every
+               rank's state equal bit for bit; (a) converged and (a), (c)
+               within 2 per step of the 1-rank run in this process, (c)
+               within 2 of the JAX package's f64 CPU counts; (b) |F| falls.
+ 34. spmd-reference - step l1, 4 ranks, two Picard steps with the ranks on
+               the card and on the CPU: counts within 1, states within 1e-6.
+
 The card-against-CPU phases (5, 8, 12, 16, 19, 24, 29) hand their CPU runs
 to two worker processes (spawned, each with (cores - 1) // 2 torch
 threads) and do their card runs meanwhile; only phase 29 prints
@@ -209,6 +237,11 @@ import numpy as np
 import torch
 
 F64_TOL, F32_TOL = 1e-12, 1e-5      # max relative error, kernel vs plain
+SPMD_RANKS, SPMD_LEVEL = 4, 2        # the ring path's rank count, step level
+# the JAX package's counts of the 3D duct's three fused Newton steps in f64
+# on the CPU (stage 2 of __graft_entry__.py with x64 enabled; the same on 4
+# virtual devices and on 1)
+DUCT_JAX_ITERS = [32, 27, 27]
 OUTER_CAP = 301                      # oracle total 271 / 0.9 (BASELINE band)
 SOURCE = "fenapack_tpu_torch/csrc/bsr_spmv.cu"
 REPLACES = {"f64": "fenapack_tpu/ops/pallas_spmv.py:526",
@@ -570,6 +603,7 @@ def main():
                       f"{m.group(4)} registers, spill stores/loads "
                       f"{spills[0]}/{spills[1]} B", flush=True)
     done("build", t0)
+
 
     # ---- 3. BSR kernels against the plain version at the l2 shapes ------ #
     t0 = time.perf_counter()
@@ -1705,6 +1739,29 @@ def main():
     done("batch", t0)
 
     # ---- 29. solve_anderson at step l1, the card against the CPU -------- #
+    # the rank processes of phases 32-34 (one gloo group of SPMD_RANKS
+    # processes, all on device 0) start here, after the phases that time
+    # the old paths, and build their solvers beside phases 29-31.  Stopped
+    # at exit whatever happens
+    from fenapack_tpu_torch import spmd_demo
+    from fenapack_tpu_torch.parallel.comm import Comm, RankPool
+    ref_spec = spmd_demo.spec_of(1, vgmg=True, max_steps=2, rtol=0.0)
+    spmd_specs = {
+        "kernels": spmd_demo.spec_of(SPMD_LEVEL, nls="newton", vgmg=True,
+                                     warm=0),
+        # (a) takes the velocity multigrid (spmd_demo --vgmg): the JAX
+        # demo's default minimal-residual sweeps leave every solve at the
+        # cap of 120 at level 2, in both packages
+        "step": spmd_demo.spec_of(SPMD_LEVEL, vgmg=True),
+        "config5": spmd_demo.spec_of(SPMD_LEVEL, supg=True, nu=1e-3,
+                                     max_steps=2, rtol=0.0),
+        "duct": spmd_demo.spec_of(1, problem="duct", fused=True, max_steps=3,
+                                  rtol=0.0),
+        "reference": ref_spec,
+        "reference_cpu": dict(ref_spec, device="cpu")}
+    pool = RankPool(SPMD_RANKS, device=dev, timeout=600.0)
+    atexit.register(pool.close)
+    pool.submit(spmd_demo.rank_prepare, list(spmd_specs.values()))
     t0 = time.perf_counter()
     # both to a nonlinear 1e-8, so that the states agree to 1e-6 (the JAX
     # package's test_anderson_same_solution_as_picard); the CPU's Anderson
@@ -1889,6 +1946,158 @@ def main():
     shutil.rmtree(tmp)
     done("surface", t0)
 
+    # ---- 32-34: the multi-device ring path, 4 rank processes on the card #
+    # the pool started after phase 2 and built every run's solvers meanwhile
+    t0 = time.perf_counter()
+    prep = pool.collect()
+    print(f"[spmd] {SPMD_RANKS} rank processes on {card.split(',')[0]} "
+          f"(one card, gloo, halos staged through host memory), started "
+          f"with phase 29: solvers of phases 32-34 built in "
+          f"{max(prep):.3f} s beside phases 29-31, waited "
+          f"{time.perf_counter() - t0:.3f} s more", flush=True)
+
+    # ---- 32. K3 on every rank-local operator of the ring path ----------- #
+    # on every rank in its process, for each operator set phase 33 applies:
+    # the step's Newton path with both multigrids (A1 + R of the solve and
+    # of every velocity level, D, B^T, Kp, Mp, Ap of every pressure level,
+    # the transfers), config 5 (the SUPG A1 without R on every velocity
+    # level) and the 3D duct (d = 3 block products with R over extended
+    # columns, 3D pressure levels and transfers)
+    n_ops = 0
+    for kname in ("kernels", "config5", "duct"):
+        kres = pool.run(spmd_demo.rank_kernel_check, spmd_specs[kname])
+        for kr in kres:
+            for op in kr["ops"]:
+                n_ops += 1
+                tgt = erec if op["kind"] == "single" else brec
+                tgt["f64"]["max_abs_err"] = max(tgt["f64"]["max_abs_err"],
+                                                op["abs_err"])
+                if kr["rank"] == 0 or op["rel_err"] > F64_TOL:
+                    print(f"[spmd-kernels] {kname} rank {kr['rank']} "
+                          f"{op['name']:34s} {op['kind']:6s} rank-local "
+                          f"({op['rows']} x {op['cols']}, K {op['K']}): "
+                          f"max rel err {op['rel_err']} (tol {F64_TOL})",
+                          flush=True)
+                _require(op["rel_err"] <= F64_TOL, f"{kname} rank "
+                         f"{kr['rank']} {op['name']}: kernel disagrees "
+                         f"with plain")
+    print(f"[spmd-kernels] {n_ops} rank-local operators of 3 paths on "
+          f"{SPMD_RANKS} ranks agree with plain (f64, <= {F64_TOL})",
+          flush=True)
+    # the largest rank-local A1 (rank 0's block of the Picard fine level,
+    # built here without communicating): kernel, plain, cuSPARSE CSR times
+    ls = spmd_demo.build_solvers(Comm(None, 0, SPMD_RANKS, dev),
+                                 spmd_demo.spec_of(SPMD_LEVEL))
+    lsp = ls["snl"].sp
+    lnl = ls["snl"].nl
+    lops = lsp.build_operands(lnl.initial_state()[:lnl.n_u])
+    a1r = lsp._rings["a1"]
+    ca, va, ne = a1r.cols, lops["a1"], a1r.ring.n_ext
+    xa = torch.as_tensor(rng.standard_normal((2, ne)), dtype=torch.float64,
+                         device=dev)
+    ok_slot = va != 0
+    crow = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                      torch.cumsum(ok_slot.sum(1), 0)])
+    csr = torch.sparse_csr_tensor(crow, ca[ok_slot].long(), va[ok_slot],
+                                  size=(va.shape[0], ne),
+                                  check_invariants=False)
+    xa_t = [xa[b].contiguous() for b in range(2)]
+    srec, _ = yardsticks(
+        lambda: ell_spmv.ell_block_spmv(ca, va, None, xa, ne),
+        lambda: ell_spmv.ell_block_spmv_plain(ca, va, None, xa, ne),
+        (lambda: [csr @ xb for xb in xa_t], ""),
+        measure.ell_block_bytes(va, None, 2, ne),
+        measure.ell_block_flops(va, None, 2), torch.float64)
+    srec["shape"] = [int(va.shape[0]), int(va.shape[1]), int(ne)]
+    print(f"[spmd-kernels] rank-local A1 block product, step l{SPMD_LEVEL} "
+          f"rank 0 of {SPMD_RANKS} ({va.shape[0]} rows x {ne} extended "
+          f"columns, K {va.shape[1]}, halo {a1r.ring.halo}): "
+          f"{json.dumps(srec)} (two cuSPARSE CSR products)", flush=True)
+    del ls, lsp, lnl, lops
+    done("spmd-kernels", t0)
+
+    # ---- 33. the ring path: step Re 100, config 5, the 3D duct ---------- #
+    t0 = time.perf_counter()
+    one = Comm(None, 0, 1, dev)
+    spmd_launch = {"ell_spmv": 0, "ell_block_spmv": 0}
+    spmd_paths = {}
+
+    def spmd_case(tag, spec, parity=None, jax_iters=None):
+        res = pool.run(spmd_demo.rank_run, spec)
+        r0 = res[0]
+        _require(all(r["digests"] == r0["digests"] for r in res)
+                 and len(r0["digests"]) == len(r0["iters"]),
+                 f"{tag}: the ranks' states differ after a step")
+        its = max(sum(r0["iters"]), 1)
+        per = {k: v / its for k, v in r0["counts"].items()}
+        l1 = sum(r["launches"]["ell_spmv"]["f64"] for r in res)
+        lb = sum(r["launches"]["ell_block_spmv"]["f64"] for r in res)
+        spmd_launch["ell_spmv"] += l1
+        spmd_launch["ell_block_spmv"] += lb
+        spmd_paths[tag] = (l1, lb)
+        print(f"[spmd] {tag}: {r0['n_dof']} dofs, iters/step "
+              f"{r0['iters']} = {sum(r0['iters'])}, |F| {r0['res']} -> "
+              f"{r0['res_end']:.3e}, converged {r0['converged']}, max true "
+              f"lin_rel {max(r0['lin_rel'])}; {r0['wall']:.3f} s, "
+              f"{r0['wall'] / its * 1e3:.3f} ms per FGMRES iteration "
+              f"({SPMD_RANKS} ranks on one card, gloo); per iteration "
+              f"{json.dumps({k: round(v, 2) for k, v in per.items()})}; "
+              f"K3 launches per rank "
+              f"{[r['launches']['ell_spmv']['f64'] for r in res]} single, "
+              f"{[r['launches']['ell_block_spmv']['f64'] for r in res]} "
+              f"block; halos {r0['halos']}", flush=True)
+        _require(l1 > 0 and all(r["launches"]["ell_spmv"]["f64"] > 0
+                                for r in res), f"{tag}: no K3 launch")
+        _require(all(x <= 5e-6 for x in r0["lin_rel"]),
+                 f"{tag}: a solve missed 5e-6 true ({r0['lin_rel']})")
+        _require(all(0 < k < spec["maxiter"] for k in r0["iters"]),
+                 f"{tag}: a solve hit the cap {spec['maxiter']}")
+        if parity is not None:
+            p1 = spmd_demo.rank_run(one, spec)
+            sdiff = rel_diff(r0["w"], p1["w"])
+            print(f"[spmd] {tag}: 1 rank in this process, iters/step "
+                  f"{p1['iters']}, {p1['wall']:.3f} s, "
+                  f"{p1['wall'] / max(sum(p1['iters']), 1) * 1e3:.3f} ms "
+                  f"per FGMRES iteration; state difference {sdiff}",
+                  flush=True)
+            _require(len(p1["iters"]) == len(r0["iters"]) and max(
+                abs(a - b) for a, b in zip(p1["iters"], r0["iters"]))
+                <= parity, f"{tag}: counts {r0['iters']} vs 1 rank "
+                f"{p1['iters']}")
+            _require(sdiff <= 1e-6, f"{tag}: 4-rank and 1-rank states "
+                     f"differ by {sdiff}")
+        if jax_iters is not None:
+            _require(max(abs(a - b) for a, b in zip(r0["iters"], jax_iters))
+                     <= 2, f"{tag}: counts {r0['iters']} vs the JAX f64 "
+                     f"CPU run {jax_iters}")
+        return r0
+
+    ra = spmd_case(f"step l{SPMD_LEVEL} Re 100 Picard", spmd_specs["step"],
+                   parity=2)
+    _require(ra["converged"], "step Re 100 did not converge")
+    rb = spmd_case(f"config 5 step l{SPMD_LEVEL} Re 2000 SUPG, 2 damped "
+                   "Picard steps", spmd_specs["config5"])
+    _require(rb["res_end"] < rb["res"][0], f"config 5: |F| did not fall "
+             f"({rb['res']} -> {rb['res_end']})")
+    spmd_case("3D duct l1 Newton SUPG, 3 fused steps", spmd_specs["duct"],
+              parity=2, jax_iters=DUCT_JAX_ITERS)
+    done("spmd", t0)
+
+    # ---- 34. ring path reference: the card against the CPU -------------- #
+    t0 = time.perf_counter()
+    card_r = pool.run(spmd_demo.rank_run, spmd_specs["reference"])[0]
+    cpu_r = pool.run(spmd_demo.rank_run, spmd_specs["reference_cpu"])[0]
+    print(f"[spmd-reference] step l1, {SPMD_RANKS} ranks, 2 Picard steps: "
+          f"card {card_r['iters']}, CPU {cpu_r['iters']}; state difference "
+          f"{rel_diff(card_r['w'], cpu_r['w'])}", flush=True)
+    _require(max(abs(a - b) for a, b in zip(card_r["iters"],
+                                             cpu_r["iters"])) <= 1,
+             "ring path: card and CPU counts differ by more than 1")
+    _require(rel_diff(card_r["w"], cpu_r["w"]) <= 1e-6,
+             "ring path: card and CPU states differ")
+    pool.close()
+    done("spmd-reference", t0)
+
     # ``launches``: counts of the paths' own runs, each read just after a
     # run that began with the counts at 0 (``paths`` splits them).  Each ELL
     # record is its f64 instantiation with the times of the cavity's
@@ -1917,15 +2126,18 @@ def main():
         "name": "ell_spmv", "route": "cuda", "source": ELL_SOURCE,
         "replaces": ELL_REPLACES,
         "launches": cavity_launches["ell_f64"] + d1[0] + d2[0] + d14[0]
-        + d18[0] + d21[0] + e31["ell_spmv"]["f64"],
+        + d18[0] + d21[0] + e31["ell_spmv"]["f64"]
+        + spmd_launch["ell_spmv"],
         "paths": {f"cavity l{cavity.LEVEL} continuation":
                   cavity_launches["ell_f64"],
                   cyl_paths[0]: d1[0], cyl_paths[1]: d2[0],
                   hr_path: d14[0], s3_path: d18[0], cf_path: d21[0],
-                  **{k: c["ell_spmv"]["f64"] for k, c in ell_paths.items()}},
+                  **{k: c["ell_spmv"]["f64"] for k, c in ell_paths.items()},
+                  **{f"ring, {SPMD_RANKS} ranks: {k}": v[0]
+                     for k, v in spmd_paths.items()}},
         "dtype": "f64", **erec["f64"],
         "cylinder": crec["f64"]["single"], "step3d": s3rec["single"],
-        "custom_uu": cfrec,
+        "custom_uu": cfrec, "ring_a1_block": srec,
         "f32": {"launches": cavity_launches["ell_f32"] + d1[2] + d2[2]
                 + d14[2] + d18[2] + d21[2] + e31["ell_spmv"]["f32"],
                 **erec["f32"], "cylinder": crec["f32"]["single"]}})
@@ -1933,13 +2145,16 @@ def main():
         "name": "ell_block_spmv", "route": "cuda", "source": ELL_SOURCE,
         "replaces": ELL_REPLACES,
         "launches": cavity_launches["ell_block_f64"] + d1[1] + d2[1]
-        + d14[1] + d18[1] + e31["ell_block_spmv"]["f64"],
+        + d14[1] + d18[1] + e31["ell_block_spmv"]["f64"]
+        + spmd_launch["ell_block_spmv"],
         "paths": {f"cavity l{cavity.LEVEL} continuation":
                   cavity_launches["ell_block_f64"],
                   cyl_paths[0]: d1[1], cyl_paths[1]: d2[1], hr_path: d14[1],
                   s3_path: d18[1],
                   **{k: c["ell_block_spmv"]["f64"]
-                     for k, c in ell_paths.items()}},
+                     for k, c in ell_paths.items()},
+                  **{f"ring, {SPMD_RANKS} ranks: {k}": v[1]
+                     for k, v in spmd_paths.items()}},
         "dtype": "f64", **brec["f64"],
         "cylinder": {k: v for k, v in crec["f64"].items() if k != "single"},
         "highre": hrec,

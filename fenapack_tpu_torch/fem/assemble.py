@@ -62,13 +62,18 @@ class NSAssembler:
     instead of ELL.  ``p1_only`` builds the pressure space alone (pattern,
     Ap, Mp), as the pressure multigrid levels need.  Velocity layout:
     ``u = [u_x (n2); u_y (n2)]`` (and ``u_z`` in 3D).  Dofs keep the mesh's
-    natural order.
+    natural order unless ``reorder``: then the velocity dofs are relabeled
+    by RCM and the pressure dofs by the order it induces on the vertices
+    (``TaylorHood(reorder=True)``), which keeps every operator's bandwidth
+    within one row block of the multi-device ring path
+    (:mod:`fenapack_tpu_torch.parallel`).  The spaces carry no alignment
+    padding: ``n2_real == n2``, ``n1_real == n1``.
     """
 
     def __init__(self, mesh, nu: float, *, device, dtype=torch.float64,
                  quad_degree: int = 5, block_size: Optional[int] = None,
                  block_dtype=None, hi_block: bool = False,
-                 p1_only: bool = False):
+                 p1_only: bool = False, reorder: bool = False):
         t0 = time.perf_counter()
         self.device = torch.device(device)
         self._p1_only = bool(p1_only)
@@ -78,8 +83,9 @@ class NSAssembler:
         self.quad_degree = quad_degree
         self.dim = d = mesh.vertices.shape[1]
         self.block_size = block_size
-        self.W = W = TaylorHood(mesh)
+        self.W = W = TaylorHood(mesh, reorder=reorder)
         self.n2, self.n1 = W.n2, W.n1
+        self.n2_real, self.n1_real = W.n2, W.n1
 
         if d == 2:
             qp, qw = el.triangle_quadrature(quad_degree)

@@ -175,7 +175,12 @@ def test_import_does_not_load_jax():
             "fenapack_tpu_torch.custom_forms, "
             "fenapack_tpu_torch.navier_stokes_pcd, "
             "fenapack_tpu_torch.unsteady_channel, "
-            "fenapack_tpu_torch.utils.timing, fenapack_tpu_torch.ir_ab\n"
+            "fenapack_tpu_torch.utils.timing, fenapack_tpu_torch.ir_ab, "
+            "fenapack_tpu_torch.parallel.comm, "
+            "fenapack_tpu_torch.parallel.spmd, "
+            "fenapack_tpu_torch.parallel.spmd_gmg, "
+            "fenapack_tpu_torch.parallel.spmd_pcd, "
+            "fenapack_tpu_torch.spmd_demo\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('fenapack_tpu.') "
             "or m == 'fenapack_tpu')\n"
