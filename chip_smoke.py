@@ -7,8 +7,8 @@ Drives the port's paths on the card (the step benchmark, the lid-driven
 cavity, the DFG cylinder, the SUPG-stabilized step at high Reynolds
 number, the 3D backward-facing step, the custom-form API, the
 high-precision solves, Anderson Picard, the body force, the two demo
-entry points and the multi-device ring path on 4 rank processes), in
-phases that each print one or more lines:
+entry points and the multi-device ring and GSPMD paths on 4 rank
+processes), in phases that each print one or more lines:
 
   1. device  - require CUDA; print ``nvidia-smi`` name and power limit.
   2. build   - compile every kernel library from csrc/ (one nvcc per source,
@@ -71,9 +71,9 @@ phases that each print one or more lines:
                under the cap at <= 1e-8, the functional's last row equal to
                its recomputation on the host from the last three states,
                mass conservation, c_D > 0 and block launches > 0.
- 12. cylinder-reference - card against CPU: 5 BDF2 steps on the level-1
+ 12. cylinder-reference - card against CPU: 3 BDF2 steps on the level-1
                obstacle channel, and on the level-0 cylinder the first two
-               Newton steps of 2D-1 and 3 BDF2 steps of 2D-2: per-step counts
+               Newton steps of 2D-1 and 2 BDF2 steps of 2D-2: per-step counts
                within 1, states within 1e-6.
  13. highre-kernels - BASELINE config 5 at level 2 (25,987 dofs, Re 2000):
                the wind after the first damped Picard step, the block
@@ -134,7 +134,7 @@ phases that each print one or more lines:
                plain version and a cuSPARSE CSR product beside the bound.
  23. custom-determinism - two assemblies of J, Kp and the residual at that
                state, bit for bit equal.
- 24. custom-reference - level 1, BRM1 with the fp form and with gp, three
+ 24. custom-reference - level 1, BRM1 with the fp form and with gp, two
                Picard steps on the card and on the CPU: equal counts,
                states within 1e-8.
  25. custom-3d - the 3D step at level 1: the custom Mp, Ap, Kp with the
@@ -205,6 +205,32 @@ phases that each print one or more lines:
                within 2 of the JAX package's f64 CPU counts; (b) |F| falls.
  34. spmd-reference - step l1, 4 ranks, two Picard steps with the ranks on
                the card and on the CPU: counts within 1, states within 1e-6.
+ 35. gspmd-kernels - the GSPMD path (``parallel/sharding.py``:
+               ``ShardedOseen``, the single-device solver on row-sharded
+               ranks) on the same 4 rank processes, for (a) the JAX demo's
+               ``--path gspmd`` at step l2 (``row_align`` 4, dense velocity
+               block and Ap), (b) config 5 with both multigrids and (c) the
+               block layout (b = 32, f32 compute and f64 operators in BSR,
+               ``row_align`` 128 so that each rank keeps its own block rows):
+               on every rank every operator the sharded step applies (the
+               rank's rows over global columns of L, Mp, Ap, M2, each D and
+               B^T, A1 with and without R, Kp; the multigrid levels and
+               restrictions, whole on every rank) through K3 (f64 and f32),
+               K2 and K1 against the plain version (1e-12 in f64, 1e-5 in
+               f32); the times of rank 0's A1 block product (2,881 rows over
+               the 11,524 global columns) beside the bound and two cuSPARSE
+               CSR products.
+ 36. gspmd   - ``spmd_demo.rank_gspmd`` on the 4 ranks: one sharded Picard
+               step from the initial state of (a), (b) and (c), each
+               against the unsharded step on the card with the same padded
+               assembler (states within 1e-8, 1e-6 and, in f32, 1e-3 with
+               an f64 true residual at most twice one device's; iterations
+               within 2, 3 and 3, under 80, 400 and 101), (a) twice with
+               one sharded solver (equal bit for bit); every rank's state
+               equal bit for bit; per case the collectives and ms per
+               FGMRES iteration (the loop alone), the peak memory per rank
+               during the case and the kernel launches on the ranks (K3 on
+               (a), (b); K2 and K1 on (c)).
 
 The card-against-CPU phases (5, 8, 12, 16, 19, 24, 29) hand their CPU runs
 to two worker processes (spawned, each with (cores - 1) // 2 torch
@@ -274,7 +300,7 @@ S3_HEADLINE = f"A1 velocity level {S3_LEVEL}"
 # the custom-form API at the step benchmark's mesh: the scipy oracle's
 # total at level 2 (tests/golden_counts.json, step2d/l2/BRM2/picard) and a
 # cap of 1.1 times it; K3 against its plain version on the path's blocks
-CF_LEVEL, CF_ORACLE, CF_K3_TOL, CF_REF_STEPS = 2, 271, 1e-13, 3
+CF_LEVEL, CF_ORACLE, CF_K3_TOL, CF_REF_STEPS = 2, 271, 1e-13, 2
 CF_CAP = int(1.1 * CF_ORACLE)
 STAGES = ("per_outer_iter_ms", "outer_matvec_ms", "pc_apply_ms",
           "pc_velocity_solve_ms", "pc_pcd_apply_ms", "pc_bt_mv_ms",
@@ -466,7 +492,7 @@ def ref_obstacle(where):
     us = ObstacleChannel2D(level=1, device=str(where)).solver(
         "BRM2", gmg_subsolves=True, unsteady=0.05, scheme="bdf2",
         **cylinder.CFG)
-    rr = us.solve_fused(5 * 0.05)
+    rr = us.solve_fused(3 * 0.05)
     return rr.w.cpu().numpy(), rr.linear_iters
 
 
@@ -480,7 +506,7 @@ def ref_newton_l0(where):
 def ref_bdf2_l0(where):
     from fenapack_tpu_torch import cylinder
     us = cylinder.build(0, 100, device=torch.device(where), unsteady=True)
-    rr = us.solve_fused(3 * us.dt)
+    rr = us.solve_fused(2 * us.dt)
     return rr.w.cpu().numpy(), rr.linear_iters
 
 
@@ -1111,9 +1137,9 @@ def main():
 
     # ---- 12. cylinder reference: card against CPU ----------------------- #
     t0 = time.perf_counter()
-    runs = (("obstacle channel level 1, 5 BDF2 steps", ref_obstacle),
+    runs = (("obstacle channel level 1, 3 BDF2 steps", ref_obstacle),
             ("cylinder level 0, 2 Newton steps of 2D-1", ref_newton_l0),
-            ("cylinder level 0, 3 BDF2 steps of 2D-2", ref_bdf2_l0))
+            ("cylinder level 0, 2 BDF2 steps of 2D-2", ref_bdf2_l0))
     jobs = [on_cpu(run) for _, run in runs]
     for (what, run), job in zip(runs, jobs):
         (gw, gi), (cw, ci) = run(dev), job.get()
@@ -1759,9 +1785,22 @@ def main():
                                   rtol=0.0),
         "reference": ref_spec,
         "reference_cpu": dict(ref_spec, device="cpu")}
+    # the GSPMD runs of phases 35-36 (parallel/sharding.py): (a) the JAX
+    # demo's --path gspmd at step l2 (row_align = ranks: dense velocity
+    # block and Ap), (b) config 5 with both multigrids, (c) the block layout
+    # (b = 32, f32 compute and f64 operators in BSR, row_align = ranks x 32
+    # so that every BSR operator keeps its own block rows)
+    gspmd_specs = {
+        "a": spmd_demo.gspmd_spec(SPMD_LEVEL, row_align=SPMD_RANKS),
+        "b": spmd_demo.gspmd_spec(SPMD_LEVEL, nu=1e-3, supg=True,
+                                  row_align=SPMD_RANKS),
+        "c": spmd_demo.gspmd_spec(SPMD_LEVEL, row_align=32 * SPMD_RANKS,
+                                  block=True, hi_block=True, rtol=1e-8,
+                                  maxiter=100)}
     pool = RankPool(SPMD_RANKS, device=dev, timeout=600.0)
     atexit.register(pool.close)
-    pool.submit(spmd_demo.rank_prepare, list(spmd_specs.values()))
+    pool.submit(spmd_demo.rank_prepare, list(spmd_specs.values())
+                + list(gspmd_specs.values()))
     t0 = time.perf_counter()
     # both to a nonlinear 1e-8, so that the states agree to 1e-6 (the JAX
     # package's test_anderson_same_solution_as_picard); the CPU's Anderson
@@ -1952,7 +1991,7 @@ def main():
     prep = pool.collect()
     print(f"[spmd] {SPMD_RANKS} rank processes on {card.split(',')[0]} "
           f"(one card, gloo, halos staged through host memory), started "
-          f"with phase 29: solvers of phases 32-34 built in "
+          f"with phase 29: solvers of phases 32-36 built in "
           f"{max(prep):.3f} s beside phases 29-31, waited "
           f"{time.perf_counter() - t0:.3f} s more", flush=True)
 
@@ -2095,8 +2134,141 @@ def main():
              "ring path: card and CPU counts differ by more than 1")
     _require(rel_diff(card_r["w"], cpu_r["w"]) <= 1e-6,
              "ring path: card and CPU states differ")
-    pool.close()
     done("spmd-reference", t0)
+
+    # ---- 35. the GSPMD path: every rank-local operator through its kernel #
+    # parallel/sharding.py on the same 4 rank processes, runs (a)-(c) of
+    # phase 29's gspmd_specs: K3 single and block products in f64 and f32,
+    # K2 and K1 on the owned rows over global columns (and on the multigrid
+    # levels, which are whole on every rank) against the plain version
+    t0 = time.perf_counter()
+    g_ops, gworst = 0, {}
+    for gname, gspec in gspmd_specs.items():
+        for kr in pool.run(spmd_demo.rank_gspmd_kernel_check, gspec):
+            for op in kr["ops"]:
+                g_ops += 1
+                tol = F64_TOL if op["dtype"] == "f64" else F32_TOL
+                key = f"{op['kernel']} {op['dtype']}"
+                gworst[key] = max(gworst.get(key, 0.0), op["rel_err"])
+                if (kr["rank"] == 0 and op["dtype"] == "f64"
+                        or op["rel_err"] > tol):
+                    print(f"[gspmd-kernels] ({gname}) rank {kr['rank']} "
+                          f"{op['name']:18s} {op['kernel']:14s} "
+                          f"{op['dtype']} rank-local {op['shape']}: max rel "
+                          f"err {op['rel_err']} (tol {tol})", flush=True)
+                _require(op["rel_err"] <= tol, f"gspmd ({gname}) rank "
+                         f"{kr['rank']} {op['name']} {op['kernel']} "
+                         f"{op['dtype']}: kernel disagrees with plain")
+    print(f"[gspmd-kernels] {g_ops} rank-local products of 3 runs on "
+          f"{SPMD_RANKS} ranks agree with plain; worst relative error per "
+          f"kernel {json.dumps(gworst)}", flush=True)
+    # rank 0's rows of the sharded step's A1 (2,881 rows over the 11,524
+    # global columns, the values of one device at the initial wind): K3's
+    # block product, its plain version, two cuSPARSE CSR products, bound
+    gnl = spmd_demo.build_gspmd(gspmd_specs["a"], dev)
+    gasm = gnl.asm
+    nloc = gasm.n2 // SPMD_RANKS
+    gv = gasm.picard_matrix_values(gnl.initial_state()[:gnl.n_u].to(
+        torch.float64))[:nloc].contiguous()
+    gc = gasm.pat_p2.cols[:nloc].contiguous()
+    gx = torch.as_tensor(rng.standard_normal((2, gasm.n2)),
+                         dtype=torch.float64, device=dev)
+    ok_slot = gv != 0
+    crow = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                      torch.cumsum(ok_slot.sum(1), 0)])
+    gcsr = torch.sparse_csr_tensor(crow, gc[ok_slot].long(), gv[ok_slot],
+                                   size=(nloc, gasm.n2),
+                                   check_invariants=False)
+    gx_t = [gx[b].contiguous() for b in range(2)]
+    grec, _ = yardsticks(
+        lambda: ell_spmv.ell_block_spmv(gc, gv, None, gx, gasm.n2),
+        lambda: ell_spmv.ell_block_spmv_plain(gc, gv, None, gx, gasm.n2),
+        (lambda: [gcsr @ xb for xb in gx_t], ""),
+        measure.ell_block_bytes(gv, None, 2, gasm.n2),
+        measure.ell_block_flops(gv, None, 2), torch.float64)
+    grec["shape"] = [int(gv.shape[0]), int(gv.shape[1]), int(gasm.n2)]
+    print(f"[gspmd-kernels] rank-local A1 block product, step l{SPMD_LEVEL} "
+          f"rank 0 of {SPMD_RANKS} ({nloc} rows x {gasm.n2} global "
+          f"columns, K {gv.shape[1]}): {json.dumps(grec)} (two cuSPARSE CSR "
+          f"products)", flush=True)
+    del gnl, gasm, gv, gc, gx, gcsr, gx_t
+    done("gspmd-kernels", t0)
+
+    # ---- 36. the GSPMD path: one sharded step on 4 ranks ---------------- #
+    # each case against the unsharded step on the card with the same padded
+    # assembler: (a) and (b) within tests/test_parallel.py's bounds (1e-8
+    # and 2 iterations, 1e-6, 3 and under 400); (c), f32 compute on the
+    # owned block rows, within 3 iterations under 101, and its state, which
+    # f32 FGMRES around f32 dense inverses (one whole inverse on one
+    # device, each rank's rows by a solve on the ranks) leaves near 1e-4
+    # from one device's, within 1e-3 and with an f64 true residual at most
+    # twice one device's.  (a) steps twice with the same sharded solver
+    # (the repeat equal bit for bit).  Every rank's state equal bit for
+    # bit.  Collectives and milliseconds per FGMRES iteration (the loop
+    # alone) of 4 processes sharing the card.
+    t0 = time.perf_counter()
+    gspmd_paths = {}
+
+    def gspmd_case(tag, spec, tol, dk, cap, kinds, repeat=1,
+                   res_factor=None):
+        ref = spmd_demo.gspmd_single(spec, dev)
+        torch.cuda.empty_cache()
+        its_ref = max(ref["iters"], 1)
+        print(f"[gspmd] {tag}: one device, {ref['iters']} FGMRES iters, "
+              f"step {ref['wall']:.3f} s, FGMRES loop {ref['fgmres']:.3f} s: "
+              f"{ref['fgmres'] / its_ref * 1e3:.3f} ms per iteration",
+              flush=True)
+        res = pool.run(spmd_demo.rank_gspmd, spec, repeat)
+        r0 = res[0]
+        _require(all(r["digests"] == r0["digests"] for r in res)
+                 and len(set(r0["digests"])) == 1, f"{tag}: the ranks' "
+                 f"states differ, or a repeated step differs")
+        its = max(r0["iters"], 1)
+        per = {k: round(v / its, 2) for k, v in r0["counts"].items()}
+        n = {k: sum(r["launches"][kern][dt] for r in res)
+             for k, (kern, dt) in kinds.items()}
+        gspmd_paths[tag] = n
+        print(f"[gspmd] {tag}: {SPMD_RANKS} ranks, {r0['n_dof']} dofs "
+              f"({r0['n_real']} real), {r0['iters']} FGMRES iters, "
+              f"step {r0['wall']:.3f} s, FGMRES loop {r0['fgmres']:.3f} s: "
+              f"{r0['fgmres'] / its * 1e3:.3f} ms per iteration (solver "
+              f"setup {r0['setup']:.3f} s); per iteration "
+              f"{json.dumps(per)}; peak GiB per rank during the case "
+              f"{[round(r['peak_gib'], 2) for r in res]}; launches on 4 "
+              f"ranks {json.dumps(n)}", flush=True)
+        _require(0 < r0["iters"] < cap, f"{tag}: {r0['iters']} iterations")
+        _require(bool(np.isfinite(r0["w"]).all()), f"{tag}: not finite")
+        for k, (kern, dt) in kinds.items():
+            _require(all(r["launches"][kern][dt] > 0 for r in res),
+                     f"{tag}: a rank launched no {k}")
+        sdiff = rel_diff(r0["w"], ref["w"])
+        print(f"[gspmd] {tag}: relative state difference to one device "
+              f"{sdiff} (bound {tol}), iterations {r0['iters']} vs "
+              f"{ref['iters']}", flush=True)
+        _require(sdiff <= tol, f"{tag}: states differ by {sdiff}")
+        _require(abs(r0["iters"] - ref["iters"]) <= dk,
+                 f"{tag}: {r0['iters']} vs {ref['iters']} iterations")
+        if res_factor is not None:
+            rr, rr_ref = ref["relres"](r0["w"]), ref["relres"](ref["w"])
+            print(f"[gspmd] {tag}: f64 true relative residual {rr}, one "
+                  f"device's {rr_ref} (bound {res_factor} x)", flush=True)
+            _require(rr <= res_factor * rr_ref, f"{tag}: true residual "
+                     f"{rr} against one device's {rr_ref}")
+        return r0
+
+    k3 = {"ell_spmv f64": ("ell_spmv", "f64"),
+          "ell_block_spmv f64": ("ell_block_spmv", "f64")}
+    gspmd_case(f"(a) step l{SPMD_LEVEL} Re 100, row_align {SPMD_RANKS}, "
+               "dense subsolves", gspmd_specs["a"], 1e-8, 2, 80, k3,
+               repeat=2)
+    gspmd_case(f"(b) config 5 step l{SPMD_LEVEL} Re 2000 SUPG, both "
+               "multigrids", gspmd_specs["b"], 1e-6, 3, 400, k3)
+    gspmd_case(f"(c) step l{SPMD_LEVEL} block layout b = 32, row_align "
+               f"{32 * SPMD_RANKS}", gspmd_specs["c"], 1e-3, 3, 101,
+               {"bsr_spmv f32": ("bsr_spmv", "f32"),
+                "bsr_spmv f64": ("bsr_spmv", "f64")}, res_factor=2.0)
+    pool.close()
+    done("gspmd", t0)
 
     # ``launches``: counts of the paths' own runs, each read just after a
     # run that began with the counts at 0 (``paths`` splits them).  Each ELL
@@ -2111,7 +2283,13 @@ def main():
     s3_path = (f"3D step l{S3_LEVEL} length {S3_LENGTH:g} config 4, "
                f"{S3_STEPS} Picard steps")
     cf_path = f"custom forms step l{CF_LEVEL} BRM2"
-    bsr_paths = {"step l2 timed solve": timed, **ir_paths}
+    bsr_paths = {"step l2 timed solve": timed, **ir_paths,
+                 **{f"gspmd, {SPMD_RANKS} ranks: {k}":
+                    {"f64": v["bsr_spmv f64"], "f32": v["bsr_spmv f32"]}
+                    for k, v in gspmd_paths.items() if "bsr_spmv f64" in v}}
+    g_ell = {kind: {f"gspmd, {SPMD_RANKS} ranks: {k}": v[kind + " f64"]
+                    for k, v in gspmd_paths.items() if kind + " f64" in v}
+             for kind in ("ell_spmv", "ell_block_spmv")}
     kernels_line = [{"name": f"bsr_spmv_{k}", "route": "cuda",
                      "source": SOURCE, "replaces": REPLACES[k],
                      "launches": sum(n[k] for n in bsr_paths.values()),
@@ -2127,14 +2305,14 @@ def main():
         "replaces": ELL_REPLACES,
         "launches": cavity_launches["ell_f64"] + d1[0] + d2[0] + d14[0]
         + d18[0] + d21[0] + e31["ell_spmv"]["f64"]
-        + spmd_launch["ell_spmv"],
+        + spmd_launch["ell_spmv"] + sum(g_ell["ell_spmv"].values()),
         "paths": {f"cavity l{cavity.LEVEL} continuation":
                   cavity_launches["ell_f64"],
                   cyl_paths[0]: d1[0], cyl_paths[1]: d2[0],
                   hr_path: d14[0], s3_path: d18[0], cf_path: d21[0],
                   **{k: c["ell_spmv"]["f64"] for k, c in ell_paths.items()},
                   **{f"ring, {SPMD_RANKS} ranks: {k}": v[0]
-                     for k, v in spmd_paths.items()}},
+                     for k, v in spmd_paths.items()}, **g_ell["ell_spmv"]},
         "dtype": "f64", **erec["f64"],
         "cylinder": crec["f64"]["single"], "step3d": s3rec["single"],
         "custom_uu": cfrec, "ring_a1_block": srec,
@@ -2146,7 +2324,8 @@ def main():
         "replaces": ELL_REPLACES,
         "launches": cavity_launches["ell_block_f64"] + d1[1] + d2[1]
         + d14[1] + d18[1] + e31["ell_block_spmv"]["f64"]
-        + spmd_launch["ell_block_spmv"],
+        + spmd_launch["ell_block_spmv"]
+        + sum(g_ell["ell_block_spmv"].values()),
         "paths": {f"cavity l{cavity.LEVEL} continuation":
                   cavity_launches["ell_block_f64"],
                   cyl_paths[0]: d1[1], cyl_paths[1]: d2[1], hr_path: d14[1],
@@ -2154,10 +2333,11 @@ def main():
                   **{k: c["ell_block_spmv"]["f64"]
                      for k, c in ell_paths.items()},
                   **{f"ring, {SPMD_RANKS} ranks: {k}": v[1]
-                     for k, v in spmd_paths.items()}},
+                     for k, v in spmd_paths.items()},
+                  **g_ell["ell_block_spmv"]},
         "dtype": "f64", **brec["f64"],
         "cylinder": {k: v for k, v in crec["f64"].items() if k != "single"},
-        "highre": hrec,
+        "highre": hrec, "gspmd_a1_block": grec,
         "step3d": {k: s3rec[k] for k in ("block", "block_with_R")},
         "f32": {"launches": cavity_launches["ell_block_f32"] + d1[3] + d2[3]
                 + d14[3] + d18[3] + e31["ell_block_spmv"]["f32"],

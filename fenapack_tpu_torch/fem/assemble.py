@@ -31,6 +31,14 @@ from ..ops.sparse import (BlockSparsityPattern, SegmentSum,
                           pattern_from_dofmaps)
 
 
+def _pad_rows(a: np.ndarray, n_extra: int) -> np.ndarray:
+    """``a`` with ``n_extra`` rows of zeros appended."""
+    if not n_extra:
+        return a
+    return np.concatenate(
+        [a, np.zeros((n_extra,) + a.shape[1:], dtype=a.dtype)])
+
+
 @dataclasses.dataclass
 class ConstOperators:
     """Mesh-constant operators.  ``L`` is the unscaled scalar P2 stiffness
@@ -66,14 +74,24 @@ class NSAssembler:
     by RCM and the pressure dofs by the order it induces on the vertices
     (``TaylorHood(reorder=True)``), which keeps every operator's bandwidth
     within one row block of the multi-device ring path
-    (:mod:`fenapack_tpu_torch.parallel`).  The spaces carry no alignment
-    padding: ``n2_real == n2``, ``n1_real == n1``.
+    (:mod:`fenapack_tpu_torch.parallel`).
+
+    ``row_align > 1`` pads both scalar spaces to multiples of it
+    (``TaylorHood(align=)``; ``n2``, ``n1`` padded, ``n2_real``,
+    ``n1_real`` real; ``u_active``/``p_active`` are 1.0 on the real dofs
+    and 0.0 on the padding) and the cell axis with phantom cells of zero
+    measure (zero ``Jinv``, ``adet``, ``g1`` and ``h_cell``), so that every
+    axis divides by the number of ranks of the row-sharded path
+    (:mod:`fenapack_tpu_torch.parallel.sharding`).  The sparsity patterns
+    are those of the real cells: an assembly sum reads the entries of the
+    real cells alone, and a phantom cell's element values are never read.
     """
 
     def __init__(self, mesh, nu: float, *, device, dtype=torch.float64,
                  quad_degree: int = 5, block_size: Optional[int] = None,
                  block_dtype=None, hi_block: bool = False,
-                 p1_only: bool = False, reorder: bool = False):
+                 p1_only: bool = False, reorder: bool = False,
+                 row_align: int = 1):
         t0 = time.perf_counter()
         self.device = torch.device(device)
         self._p1_only = bool(p1_only)
@@ -83,9 +101,17 @@ class NSAssembler:
         self.quad_degree = quad_degree
         self.dim = d = mesh.vertices.shape[1]
         self.block_size = block_size
-        self.W = W = TaylorHood(mesh, reorder=reorder)
-        self.n2, self.n1 = W.n2, W.n1
-        self.n2_real, self.n1_real = W.n2, W.n1
+        self.row_align = int(row_align)
+        self.W = W = TaylorHood(mesh, align=self.row_align, reorder=reorder)
+        self.n2, self.n1 = W.n2, W.n1           # padded sizes
+        self.n2_real, self.n1_real = W.V.dim, W.Q.dim
+        # active-dof masks: 0.0 on the alignment padding
+        p_act = np.zeros(self.n1)
+        p_act[:self.n1_real] = 1.0
+        u_act = np.zeros(d * self.n2)
+        for a in range(d):
+            u_act[a * self.n2:a * self.n2 + self.n2_real] = 1.0
+        self._p_active_np, self._u_active_np = p_act, u_act
 
         if d == 2:
             qp, qw = el.triangle_quadrature(quad_degree)
@@ -104,13 +130,21 @@ class NSAssembler:
         adet = np.abs(np.linalg.det(J))
         self._v0, self._Jinv_np = v[:, 0], Jinv
         g1 = np.einsum("ik,ckd->cid", dphi1[0], Jinv)       # (nc, nb1, d)
-        self.nc = mesh.num_cells
-        self._cd2_np = W.V.cell_dofs.astype(np.int64)
-        self._cd1_np = W.Q.cell_dofs.astype(np.int64)
         # cell diameters, read by the streamline diffusion: the longest of
         # |v_i - v_(i-1)| taken cyclically, as in the JAX package (every
         # edge of a triangle; 4 of the 6 edges of a tet)
         h_cell = np.linalg.norm(v - np.roll(v, 1, axis=1), axis=2).max(axis=1)
+        cd2 = W.V.cell_dofs.astype(np.int64)
+        cd1 = W.Q.cell_dofs.astype(np.int64)
+        # phantom cells pad the cell axis to a multiple of row_align: zero
+        # geometry, dofmap rows of dof 0
+        self.nc_real = nc = cd2.shape[0]
+        nc_pad = -(-nc // self.row_align) * self.row_align - nc
+        Jinv, g1, adet, h_cell = (_pad_rows(a, nc_pad)
+                                  for a in (Jinv, g1, adet, h_cell))
+        self.nc = nc + nc_pad
+        self._cd2_np, self._cd1_np = _pad_rows(cd2, nc_pad), _pad_rows(
+            cd1, nc_pad)
 
         t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,
                                       device=self.device)
@@ -119,11 +153,10 @@ class NSAssembler:
         self.Jinv, self.dphi2, self.g1 = t(Jinv), t(dphi2), t(g1)
         self.adet, self.qw, self.h_cell = t(adet), t(qw), t(h_cell)
         self.phi2, self.phi1 = t(phi2), t(phi1)
+        self.p_active, self.u_active = t(p_act), t(u_act)
         self.wdet = self.adet[:, None] * self.qw[None, :]   # (nc, nq)
         self._host_tabs = dict(Jinv=Jinv, dphi2=dphi2, g1=g1, phi2=phi2,
                                phi1=phi1)
-
-        cd2, cd1 = self._cd2_np, self._cd1_np
 
         def build_patterns(block):
             dofmaps = ((cd2, cd2, self.n2, self.n2),
@@ -210,9 +243,10 @@ class NSAssembler:
         f_cd1 = self._cd1_np[fcells]
         # surface entries land in the volume P1 pattern's slots, added to
         # the volume values in a fixed order
-        self.kp_surf_sum = SegmentSum(
-            self.pat_p1.entry_positions(f_cd1, f_cd1),
-            self.pat_p1.value_size, device=self.device)
+        self._kp_surf_pos = self.pat_p1.entry_positions(f_cd1, f_cd1)
+        self.kp_surf_sum = SegmentSum(self._kp_surf_pos,
+                                      self.pat_p1.value_size,
+                                      device=self.device)
 
     def _pats(self, hi: bool):
         if hi:
@@ -509,8 +543,7 @@ class NSAssembler:
         every cell (triangles or tets) and integrated against the P2 basis
         on the host in NumPy, summed with ``np.add.at`` in the JAX package's
         order; the load vector is held on the assembler's device in its
-        dtype.  The port's meshes carry no padding rows, so every row of
-        the load is a real dof."""
+        dtype, zero on the alignment padding."""
         d, mesh = self.dim, self.mesh
         if d == 2:
             qp, qw = el.triangle_quadrature(self.quad_degree)
@@ -518,7 +551,7 @@ class NSAssembler:
         else:
             qp, qw = el3.tet_quadrature(self.quad_degree)
             phi2, _ = el3.p2_basis(qp)
-        nc = mesh.num_cells
+        nc = self.nc_real
         v = mesh.vertices[mesh.cells]                 # (nc, d+1, d)
         v0 = v[:, 0]
         E = v[:, 1:] - v0[:, None]                    # (nc, d, d) edges
@@ -529,7 +562,8 @@ class NSAssembler:
         elem = np.einsum("n,q,nqa,qi->nai", adet, qw, fq, phi2)
         b = np.zeros(d * self.n2)
         for a in range(d):
-            np.add.at(b, a * self.n2 + self._cd2_np, elem[:, a, :])
+            np.add.at(b, a * self.n2 + self._cd2_np[:nc], elem[:, a, :])
+        b *= self._u_active_np                        # padding rows stay 0
         self._load_u = torch.as_tensor(b, dtype=self.dtype,
                                        device=self.device)
 

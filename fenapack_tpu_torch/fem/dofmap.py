@@ -191,8 +191,15 @@ class TaylorHood:
     """Mixed P2^d x P1 space on a triangle (d = 2) or tet (d = 3) mesh:
     ``dim_u = d * n2``, ``dim_p = n1``.  ``reorder`` relabels the velocity
     dofs by RCM and the pressure dofs by the ordering it induces on the
-    shared vertices."""
+    shared vertices.
+
+    ``align > 1`` pads each scalar space to a multiple of ``align`` (the
+    row-sharded layout of :mod:`fenapack_tpu_torch.parallel.sharding`:
+    every distributed axis divides by the number of ranks).  ``V.dim`` and
+    ``Q.dim`` stay the real sizes; the padded dofs follow them, touch no
+    cell, and the solvers pin them to identity rows."""
     mesh: object          # TriMesh or TetMesh
+    align: int = 1
     reorder: bool = False
 
     def __post_init__(self):
@@ -210,8 +217,9 @@ class TaylorHood:
             nv = self.mesh.vertices.shape[0]
             q_rank = np.argsort(np.argsort(v_rank[:nv])).astype(np.int32)
             self.Q = ReorderedSpace(self.Q, q_rank)
-        self.n2 = self.V.dim
-        self.n1 = self.Q.dim
+        a = self.align
+        self.n2 = -(-self.V.dim // a) * a      # padded scalar P2 size
+        self.n1 = -(-self.Q.dim // a) * a      # padded P1 size
 
     @property
     def dim_u(self) -> int:

@@ -29,6 +29,8 @@ from __future__ import annotations
 
 import hashlib
 import os
+import threading
+import zipfile
 from typing import Optional
 
 import numpy as np
@@ -408,7 +410,7 @@ def pattern_from_dofmaps(test_dofs: np.ndarray, trial_dofs: np.ndarray,
                 with np.load(path) as z:
                     data = {k: z[k] for k in z.files}
                 return cls._from_cache(data, n_rows, n_cols, block, device)
-            except (OSError, ValueError, KeyError):
+            except (OSError, ValueError, KeyError, zipfile.BadZipFile):
                 pass                    # corrupt or stale: rebuild
 
     rows = np.repeat(test_dofs, b, axis=1)
@@ -421,7 +423,9 @@ def pattern_from_dofmaps(test_dofs: np.ndarray, trial_dofs: np.ndarray,
     if path is not None:
         try:
             os.makedirs(cache_dir, exist_ok=True)
-            tmp = path + f".tmp{os.getpid()}.npz"
+            # one temporary file per writer: thread ranks of one process
+            # may build the same pattern at once
+            tmp = path + f".tmp{os.getpid()}-{threading.get_ident()}.npz"
             np.savez(tmp, **pat._to_cache())
             os.replace(tmp, path)
         except OSError:

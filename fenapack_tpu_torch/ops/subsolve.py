@@ -13,6 +13,8 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
+from .dist import LOCAL
+
 
 def make_jacobi(diag: torch.Tensor) -> Callable:
     dinv = 1.0 / diag
@@ -63,50 +65,71 @@ def chebyshev_solver(matvec: Callable, dinv: torch.Tensor, lmin: float,
 
 
 def power_bounds(matvec: Callable, dinv: torch.Tensor, n: int,
-                 iters: int = 50, seed: int = 0) -> Tuple[float, float]:
-    """Estimate (lmin, lmax) of ``diag^{-1} A`` for an SPD ``A`` by power
-    iteration on D^{-1}A, then on (lmax I - D^{-1}A).  Setup-time only."""
+                 iters: int = 50, seed: int = 0,
+                 dist=LOCAL) -> Tuple[float, float]:
+    """Estimate (lmin, lmax) of ``diag^{-1} A`` for an SPD ``A`` of order
+    ``n`` by power iteration on D^{-1}A, then on (lmax I - D^{-1}A).
+    Setup-time only.  ``dist``: the layout of the pressure vectors
+    ``matvec`` and ``dinv`` act on (:mod:`fenapack_tpu_torch.ops.dist`);
+    the start vectors are drawn whole and each rank keeps its rows."""
     rng = np.random.default_rng(seed)
     op = lambda v: dinv * matvec(v)
     like = dict(dtype=dinv.dtype, device=dinv.device)
+    start = lambda: dist.rows(torch.as_tensor(rng.standard_normal(n),
+                                              **like), "p")
 
-    v = torch.as_tensor(rng.standard_normal(n), **like)
-    v = v / torch.linalg.norm(v)
+    v = start()
+    v = v / dist.norm(v)
     lam = 1.0
     for _ in range(iters):
         w = op(v)
-        lam = torch.linalg.norm(w)
+        lam = dist.norm(w)
         v = w / lam
     lmax = float(lam)
 
-    v = torch.as_tensor(rng.standard_normal(n), **like)
-    v = v / torch.linalg.norm(v)
+    v = start()
+    v = v / dist.norm(v)
     mu = 0.0
     for _ in range(iters):
         w = lmax * v - op(v)
-        mu = torch.linalg.norm(w)
+        mu = dist.norm(w)
         v = w / mu
     lmin = float(lmax - mu)
     return max(lmin, 1e-12), lmax * 1.01
 
 
-def dense_lu_solver(A_dense: torch.Tensor) -> Callable:
+def dense_lu_solver(A_dense: torch.Tensor, dist=LOCAL,
+                    space: str = "u") -> Callable:
     """Exact dense solver via a precomputed explicit inverse: one matrix-
     vector product per apply (FGMRES absorbs the inverse's extra rounding).
-    Needs full-precision matrix products: TF32 off (the solvers set it)."""
-    Ainv = torch.linalg.inv(A_dense)
-    return lambda b: Ainv @ b
+    Needs full-precision matrix products: TF32 off (the solvers set it).
+    ``dist``/``space``: the layout of the vectors it is applied to; a rank
+    solves for its rows of the inverse alone (``E A^{-1}``, E the rank's
+    rows of the identity: no whole inverse is held) and applies them to
+    the gathered vector."""
+    if dist.size == 1:
+        Ainv = torch.linalg.inv(A_dense)
+        return lambda b: Ainv @ b
+    n = A_dense.shape[0]
+    rows = dist.rows(torch.arange(n, device=A_dense.device), space)
+    E = torch.zeros((rows.shape[0], n), dtype=A_dense.dtype,
+                    device=A_dense.device)
+    E[torch.arange(rows.shape[0], device=rows.device), rows] = 1.0
+    Ainv = torch.linalg.solve(A_dense, E, left=False)
+    return lambda b: Ainv @ dist.full(b, space)
 
 
 def masked_spd_solver_dense(op, pattern, bc_mask: torch.Tensor,
-                            dtype=None, nullspace: bool = False) -> Callable:
+                            dtype=None, nullspace: bool = False,
+                            dist=LOCAL) -> Callable:
     """Dense exact solver of the symmetric bc-eliminated operator
     ``free A free + I_bc``.
 
     ``nullspace=True`` (enclosed flow: pure-Neumann pressure Laplacian) adds
     the rank-1 constant shift ``(1/n_free) free free^T`` so the inverse
     exists; with the constant-mode projections of the PCD apply it acts as
-    the pseudo-inverse."""
+    the pseudo-inverse.  ``bc_mask`` is full-length; ``dist`` lays out the
+    pressure vectors the solver is applied to."""
     dt = dtype or op.vals.dtype
     A = pattern.to_dense(op.vals).to(dt)
     bc = bc_mask.to(dt)
@@ -115,4 +138,4 @@ def masked_spd_solver_dense(op, pattern, bc_mask: torch.Tensor,
     if nullspace:
         n_free = torch.clamp(torch.sum(free), min=1.0)
         A = A + torch.outer(free, free) / n_free
-    return dense_lu_solver(A)
+    return dense_lu_solver(A, dist, "p")

@@ -1,4 +1,5 @@
-"""The multi-device ring path on ``torch.distributed`` (gloo): ranks and
-collectives (:mod:`.comm`), ring-halo products and FGMRES (:mod:`.spmd`),
-distributed multigrid (:mod:`.spmd_gmg`) and the distributed Oseen solve
-with its drivers (:mod:`.spmd_pcd`)."""
+"""The multi-device paths on ``torch.distributed`` (gloo): ranks and
+collectives (:mod:`.comm`); the ring path, with ring-halo products and
+FGMRES (:mod:`.spmd`), distributed multigrid (:mod:`.spmd_gmg`) and the
+distributed Oseen solve with its drivers (:mod:`.spmd_pcd`); the GSPMD
+path, the single-device solver on row-sharded ranks (:mod:`.sharding`)."""

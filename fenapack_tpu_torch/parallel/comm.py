@@ -8,7 +8,9 @@ distributed, over contiguous row blocks (:mod:`.spmd`).
 
   * :class:`Comm` wraps one gloo group: ``allreduce_sum`` (sums of scalars
     and short vectors), ``ring_exchange`` (the one-hop halos of the ring
-    products, zeros at the ring's ends) and ``all_gather``.  Gloo does not
+    products, zeros at the ring's ends), ``all_gather`` and
+    ``reduce_scatter`` (each rank's block of a sum of per-rank partials:
+    the sharded assembly of :mod:`.sharding`).  Gloo does not
     send CUDA tensors, so every collective stages its payload through host
     memory here, and nowhere else: a copy to the host (which waits for the
     device's queued work), the gloo call, a copy back.  Each call adds one
@@ -23,7 +25,8 @@ distributed, over contiguous row blocks (:mod:`.spmd`).
 
 Every group is created on the loopback device (no hostname resolution) with
 a timeout of at most 60 s, so a rank that waits for a failed peer gives up
-instead of hanging.  No NCCL: it needs one GPU per rank, and the ranks of
+instead of hanging.  Inside a rank, :func:`current` returns its
+:class:`Comm`.  No NCCL: it needs one GPU per rank, and the ranks of
 this port may share one card.
 """
 from __future__ import annotations
@@ -40,6 +43,14 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import torch
 
 MAX_TIMEOUT = 60.0            # seconds: the longest wait of any collective
+
+_local = threading.local()
+
+
+def current() -> Optional["Comm"]:
+    """The :class:`Comm` of the rank this thread runs (None outside the
+    launchers of this module)."""
+    return getattr(_local, "comm", None)
 
 
 def _gloo_group(store, rank: int, size: int, timeout: float):
@@ -61,7 +72,8 @@ class Comm:
     def __init__(self, group, rank: int, size: int, device):
         self.group, self.rank, self.size = group, int(rank), int(size)
         self.device = torch.device(device)
-        self.counts = {"exchange": 0, "allreduce": 0, "allgather": 0}
+        self.counts = {"exchange": 0, "allreduce": 0, "allgather": 0,
+                       "reducescatter": 0}
 
     def reset_counts(self):
         for key in self.counts:
@@ -135,6 +147,28 @@ class Comm:
         out = self._gather_host(self._to_host(x))
         self.counts["allgather"] += 1
         return self._to_device(out, x.device)
+
+    def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the sum over the ranks of ``t`` (``(size,
+        ...)``: block q goes to rank q), on ``t``'s device.  Every rank
+        sends block q to rank q and adds the blocks it receives in rank
+        order on the host, so the sum takes the same order on every run."""
+        if self.size == 1:
+            return t[0]
+        host = self._to_host(t)
+        recv = torch.empty_like(host)
+        recv[self.rank] = host[self.rank]
+        peers = [p for p in range(self.size) if p != self.rank]
+        works = [self.group.recv([recv[p]], p, 2) for p in peers]
+        works += [self.group.send([host[p].contiguous()], p, 2)
+                  for p in peers]
+        for w in works:
+            w.wait()
+        acc = recv[0].clone()
+        for o in recv[1:]:
+            acc += o
+        self.counts["reducescatter"] += 1
+        return self._to_device(acc, t.device)
 
     def ring_exchange(self, parts: Sequence[Tuple[torch.Tensor, int]]
                       ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
@@ -223,10 +257,12 @@ def _thread_ranks(fn, size, device, timeout, args):
         try:
             comm = Comm(_gloo_group(store, rank, size, timeout)
                         if size > 1 else None, rank, size, device)
+            _local.comm = comm
             results[rank] = fn(comm, *args)
         except BaseException as exc:           # reported to the caller
             errors.put((rank, exc, traceback.format_exc()))
         finally:
+            _local.comm = None
             _release(comm)
             done[rank] = True
 
@@ -291,6 +327,7 @@ def _worker(rank, size, device, port, timeout, tasks, results):
                                   timeout=datetime.timedelta(
                                       seconds=MAX_TIMEOUT))
             comm.group = _gloo_group(store, rank, size, timeout)
+        _local.comm = comm
     except BaseException:
         # the answer to the first task
         results.put((rank, False, traceback.format_exc()))

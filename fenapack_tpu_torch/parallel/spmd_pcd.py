@@ -184,7 +184,7 @@ class SPMDPCDSolver:
             else:
                 # bounds of the sequential masked operator: the ring
                 # operator is the same matrix with identity on masked rows
-                ap_mask_seq = oseen.pcd_mask if oseen.has_pcd_bcs else None
+                ap_mask_seq = oseen._union(oseen.pcd_mask, oseen.p_pad)
                 op0 = c.Ap.with_vals(c.Ap.vals.to(dt))
                 diag0 = c.Ap.diag_from(asm.pat_p1.diag_pos).to(dt)
                 if ap_mask_seq is not None:

@@ -49,6 +49,7 @@ from ..fem import mesh as meshmod
 from ..ops import subsolve
 from ..ops.sparse import ELL, BlockSparsityPattern, SparsityPattern
 from .config import MultigridConfig, VelocityConfig
+from ..ops.dist import LOCAL
 
 # Largest coarse system inverted densely (the JAX package's default
 # FENAPACK_GMG_DENSE_MAX).  Read at every build, so a test may lower it.
@@ -156,7 +157,7 @@ def _jacobi_smooth(matvec, dinv, omega, iters, b, x):
     return x
 
 
-def _minres_smooth(matvec, dinv, iters, b, x):
+def _minres_smooth(matvec, dinv, iters, b, x, dist=LOCAL):
     """Minimal-residual smoother: the Jacobi-preconditioned Krylov
     directions ``z_i = (D^-1 A)^i D^-1 r`` and the combination of them that
     minimizes ``|r - A Z y|``, from the (iters x iters) normal equations
@@ -165,7 +166,9 @@ def _minres_smooth(matvec, dinv, iters, b, x):
     level operators, where damped Jacobi with a fixed omega amplifies
     characteristic modes.  The small system is solved by
     ``torch.linalg.solve_ex``, which leaves its ``info`` on the device:
-    the smoother makes no host synchronisation."""
+    the smoother makes no host synchronisation.  ``dist``: the layout of
+    the level's vectors (:mod:`.dist`); the Gram sums are reduced over its
+    ranks in one reduction."""
     r = b - matvec(x)
     z = dinv * r
     Zs, Ws = [], []
@@ -176,8 +179,7 @@ def _minres_smooth(matvec, dinv, iters, b, x):
         z = dinv * w
     W = torch.stack(Ws)                                  # (s, n)
     Z = torch.stack(Zs)
-    G = W @ W.T
-    c = W @ r
+    G, c = dist.gram(W, r)
     lam = 1e-7 * torch.trace(G) / G.shape[0] + 1e-30
     eye = torch.eye(G.shape[0], dtype=G.dtype, device=G.device)
     y = torch.linalg.solve_ex(G + lam * eye, c)[0]
@@ -188,20 +190,23 @@ def make_vcycle(matvecs: Sequence[Callable], dinvs: Sequence[torch.Tensor],
                 transfers: Sequence, coarse_solve: Callable,
                 masks: Sequence[Optional[torch.Tensor]],
                 smooth_iters: int = 2, omega: float = 0.67,
-                cycles: int = 1, smoother: str = "jacobi") -> Callable:
+                cycles: int = 1, smoother: str = "jacobi",
+                dists: Optional[Sequence] = None) -> Callable:
     """Fixed-shape V-cycle ``solve(b) -> x``.  ``matvecs``, ``dinvs`` and
     ``masks`` are per level, coarse to fine; ``transfers`` connect
     consecutive levels; ``masks`` chop the Dirichlet rows of restricted
     residuals (1.0 = pinned).  ``smoother``: "jacobi" (damped, ``omega``)
-    or "minres" (:func:`_minres_smooth`)."""
+    or "minres" (:func:`_minres_smooth`).  ``dists``: each level's vector
+    layout (default: whole on every level)."""
     if smoother not in ("jacobi", "minres"):
         raise ValueError(f"unknown smoother {smoother!r}")
     L = len(matvecs)
+    dists = list(dists) if dists is not None else [LOCAL] * L
 
     def smooth(lvl, b, x):
         if smoother == "minres":
             return _minres_smooth(matvecs[lvl], dinvs[lvl], smooth_iters,
-                                  b, x)
+                                  b, x, dists[lvl])
         return _jacobi_smooth(matvecs[lvl], dinvs[lvl], omega, smooth_iters,
                               b, x)
 
@@ -244,7 +249,8 @@ class PressureHierarchy:
     """Per-level pressure stiffness and transfers for the Ap subsolve.
     ``pcd_markers``: facet markers whose P1 dofs are Dirichlet-pinned on
     every level (the PCD BC rows).  ``fine_asm`` (the solver's assembler)
-    serves as the fine level."""
+    serves as the fine level; it must carry no alignment padding (the
+    solver's padded pressure tail passes the V-cycle as identity)."""
 
     def __init__(self, hier: MeshHierarchy, dtype, *, device,
                  pcd_markers: Sequence[int] = (),
@@ -252,6 +258,9 @@ class PressureHierarchy:
         from ..fem.assemble import NSAssembler
         if fine_asm is not None and fine_asm.mesh is not hier.fine:
             raise ValueError("fine_asm was built on a different mesh")
+        if fine_asm is not None and fine_asm.row_align != 1:
+            raise ValueError("fine_asm with row alignment padding cannot "
+                             "seed the hierarchy fine level")
         self.hier, self.dtype = hier, dtype
         self.pcd_markers = tuple(pcd_markers)
         self.levels: List[PLevel] = []
@@ -440,7 +449,7 @@ class PCoarseTransfer:
     def __init__(self, W, *, device, dtype=torch.float64):
         mesh = W.mesh
         nv = mesh.num_vertices
-        self.n_coarse, self.n_fine = W.n1, W.n2
+        self.n_coarse, self.n_fine = W.Q.dim, W.V.dim
         v = np.arange(nv, dtype=np.int64)
         # one 0.5 weight per index slot: vertex rows hit their own P1 dof
         # twice, edge rows their two endpoints
@@ -449,9 +458,9 @@ class PCoarseTransfer:
         self._IA = torch.as_tensor(IA, device=device)
         self._IB = torch.as_tensor(IB, device=device)
         self._PT = _ell_restriction(
-            np.arange(W.n2, dtype=np.int64).repeat(2),
-            np.stack([IA, IB], axis=1).ravel(), np.full(2 * W.n2, 0.5),
-            W.n2, W.n1, dtype, device)
+            np.arange(self.n_fine, dtype=np.int64).repeat(2),
+            np.stack([IA, IB], axis=1).ravel(), np.full(2 * self.n_fine, 0.5),
+            self.n_fine, self.n_coarse, dtype, device)
 
     def prolong(self, xc: torch.Tensor) -> torch.Tensor:
         return 0.5 * (xc[self._IA] + xc[self._IB])
@@ -461,18 +470,36 @@ class PCoarseTransfer:
 
 
 class _VectorTransfer:
-    """Lift a scalar transfer to the stacked [u_x; u_y[; u_z]] layout."""
+    """Lift a scalar transfer to the stacked [u_x; u_y[; u_z]] layout.
 
-    def __init__(self, t: P2Transfer, n2c: int, n2f: int, d: int = 2):
+    ``n2c``/``n2f`` are the (possibly alignment-padded) per-component
+    sizes; the scalar transfer acts on the leading real dofs and the
+    padding stays zero.  ``dist`` lays out the fine level's vectors (the
+    coarse level is whole): a restriction gathers the fine vector, a
+    prolongation keeps the rank's rows."""
+
+    def __init__(self, t: P2Transfer, n2c: int, n2f: int, d: int = 2,
+                 dist=LOCAL):
         self.t, self.n2c, self.n2f, self.d = t, n2c, n2f, d
+        self.dist = dist
+
+    @staticmethod
+    def _pad(x, n):
+        return torch.nn.functional.pad(x, (0, n - x.shape[0])) \
+            if n > x.shape[0] else x
 
     def prolong(self, xc):
-        return torch.cat([self.t.prolong(xc[a * self.n2c:(a + 1) * self.n2c])
-                          for a in range(self.d)])
+        t, n2c = self.t, self.n2c
+        return self.dist.rows(torch.cat([
+            self._pad(t.prolong(xc[a * n2c:(a + 1) * n2c][:t.n_coarse]),
+                      self.n2f) for a in range(self.d)]), "u")
 
     def restrict(self, rf):
-        return torch.cat([self.t.restrict(rf[a * self.n2f:(a + 1) * self.n2f])
-                          for a in range(self.d)])
+        t, n2f = self.t, self.n2f
+        rf = self.dist.full(rf, "u")
+        return torch.cat([
+            self._pad(t.restrict(rf[a * n2f:(a + 1) * n2f][:t.n_fine]),
+                      self.n2c) for a in range(self.d)])
 
 
 def _velocity_gmg_plan(vh: VelocityHierarchy, d: int):
@@ -628,16 +655,21 @@ def velocity_gmg_values(vh: VelocityHierarchy, wind_fine: torch.Tensor,
 def make_velocity_gmg_from_values(vh: VelocityHierarchy,
                                   cfg: VelocityConfig, vals,
                                   bc_mask_u_fine: torch.Tensor,
-                                  omega: float = 0.6) -> Callable:
+                                  omega: float = 0.6,
+                                  dist=LOCAL) -> Callable:
     """Closure half of the velocity V-cycle, from
     :func:`velocity_gmg_values` output.  In the ELL layout a level matvec is
     one block product over the level's shared pattern (A1 on every
     component plus the Newton reaction blocks); in the BSR layout each
     component is one single-RHS product with the level's scalar operator,
     plus one per Newton reaction block.  The smoother is
-    ``cfg.smoother``."""
+    ``cfg.smoother``.  ``dist`` lays out the fine level's vectors (the
+    solver's); the coarser levels are whole on every rank."""
     d = vh.asms[-1].dim
+    L = len(vh.asms)
     level_masks = _velocity_level_masks(vh, bc_mask_u_fine, d)
+    level_masks[-1] = dist.rows(level_masks[-1], "u")
+    dists = [LOCAL] * (L - 1) + [dist]
     matvecs, dinvs, vtransfers = [], [], []
     for l, asm in enumerate(vh.asms):
         n2, mask_u = asm.n2, level_masks[l]
@@ -647,7 +679,8 @@ def make_velocity_gmg_from_values(vh: VelocityHierarchy,
         dinvs.append(dinv)
         if l > 0:
             vtransfers.append(_VectorTransfer(vh.transfers[l - 1],
-                                              vh.asms[l - 1].n2, n2, d=d))
+                                              vh.asms[l - 1].n2, n2, d=d,
+                                              dist=dists[l]))
 
     asm0 = vh.asms[0]
     pcoarse, dense = _velocity_gmg_plan(vh, d)
@@ -660,11 +693,11 @@ def make_velocity_gmg_from_values(vh: VelocityHierarchy,
         level_masks.insert(0, _pcoarse_mask(vh, d))
         vtransfers.insert(0, _VectorTransfer(
             PCoarseTransfer(asm0.W, device=asm0.device, dtype=vh.dtype),
-            asm0.n1, asm0.n2,
-            d=d))
+            asm0.n1, asm0.n2, d=d, dist=dists[0]))
+        dists.insert(0, LOCAL)
     if pcoarse or dense:
-        Ainv = vals["coarse_inv"]
-        coarse_solve = lambda b: Ainv @ b
+        Ainv = dists[0].rows(vals["coarse_inv"], "u")
+        coarse_solve = lambda b: Ainv @ dists[0].full(b, "u")
     else:
         # a fixed budget of minimal-residual sweeps (FGMRES is flexible:
         # an inexact bottom solve only shifts the iteration counts)
@@ -672,12 +705,13 @@ def make_velocity_gmg_from_values(vh: VelocityHierarchy,
         sweeps = max(8, 2 * cfg.smooth_iters)
 
         def coarse_solve(b):
-            x = _minres_smooth(mv0, dinv0, sweeps, b, torch.zeros_like(b))
-            return _minres_smooth(mv0, dinv0, sweeps, b, x)
+            x = _minres_smooth(mv0, dinv0, sweeps, b, torch.zeros_like(b),
+                               dists[0])
+            return _minres_smooth(mv0, dinv0, sweeps, b, x, dists[0])
     return make_vcycle(matvecs, dinvs, vtransfers, coarse_solve,
                        level_masks, smooth_iters=cfg.smooth_iters,
                        omega=omega, cycles=cfg.cycles,
-                       smoother=cfg.smoother)
+                       smoother=cfg.smoother, dists=dists)
 
 
 def make_velocity_gmg_from_wind(vh: VelocityHierarchy, cfg: VelocityConfig,
@@ -686,13 +720,16 @@ def make_velocity_gmg_from_wind(vh: VelocityHierarchy, cfg: VelocityConfig,
                                 omega: float = 0.6, newton: bool = False,
                                 fine_values=None, theta: float = 1.0,
                                 inv_dt: float = 0.0,
-                                supg: bool = False) -> Callable:
+                                supg: bool = False,
+                                dist=LOCAL) -> Callable:
     """V-cycle preconditioner for the velocity block, re-discretizing the
     Picard (``newton``: plus reaction) operator on every level from the
     injected wind.  ``fine_values`` is the fine level's ``(A1, R)``;
-    ``theta``/``inv_dt``/``supg``: see :func:`velocity_gmg_values`."""
+    ``theta``/``inv_dt``/``supg``: see :func:`velocity_gmg_values`.  The
+    wind and ``bc_mask_u_fine`` are whole; ``dist`` lays out the vectors
+    the V-cycle is applied to."""
     vals = velocity_gmg_values(vh, wind_fine, bc_mask_u_fine, dtype,
                                newton=newton, fine_values=fine_values,
                                theta=theta, inv_dt=inv_dt, supg=supg)
     return make_velocity_gmg_from_values(vh, cfg, vals, bc_mask_u_fine,
-                                         omega=omega)
+                                         omega=omega, dist=dist)

@@ -36,6 +36,8 @@ import numpy as np
 import torch
 from scipy.linalg import solve_triangular
 
+from ..ops.dist import LOCAL
+
 _EPS = {torch.float32: 6.0e-8, torch.float64: 2.3e-16}
 _NP = {torch.float32: np.float32, torch.float64: np.float64}
 
@@ -99,10 +101,15 @@ def refresh_recycle(matvec: Callable, rec: RecycleSpace) -> RecycleSpace:
 
 def fgmres(matvec: Callable, pc: Callable, b: torch.Tensor, *,
            maxiter: int = 100, rtol: float = 1e-8,
-           reorth_eta: float = 0.0) -> FGMRESResult:
+           reorth_eta: float = 0.0, dist=LOCAL) -> FGMRESResult:
     """Solve ``A x = b`` with right preconditioner ``pc`` (flexible).
-    ``reorth_eta = 0`` runs the second Gram-Schmidt pass unconditionally."""
-    return _fgmres(matvec, pc, b, None, maxiter, rtol, reorth_eta)[0]
+    ``reorth_eta = 0`` runs the second Gram-Schmidt pass unconditionally.
+    ``dist`` (:mod:`.dist`) lays the Krylov vectors out over ranks: each
+    rank holds its rows of ``b``, of the basis and of ``x``; the
+    Gram-Schmidt projections and norms are reduced over the ranks (three
+    reductions per iteration), so every rank reads the same Hessenberg
+    column and stops at the same iteration."""
+    return _fgmres(matvec, pc, b, None, maxiter, rtol, reorth_eta, dist)[0]
 
 
 def fgmres_dr(matvec: Callable, pc: Callable, b: torch.Tensor,
@@ -118,13 +125,15 @@ def fgmres_dr(matvec: Callable, pc: Callable, b: torch.Tensor,
 
 
 def _fgmres(matvec, pc, b, rec: Optional[RecycleSpace], maxiter: int,
-            rtol: float, reorth_eta: float):
+            rtol: float, reorth_eta: float, dist=LOCAL):
     n, m = b.shape[0], maxiter
     dtype, dev = b.dtype, b.device
     npdt = _NP[dtype]
     r0 = b
     if rec is None:
-        bnorm = beta = npdt(torch.linalg.norm(b).cpu())
+        bnorm = beta = npdt(dist.norm(b).cpu())
+    elif dist.size > 1:
+        raise NotImplementedError("GCRO-DR recycling runs on one device")
     else:
         # project out the recycle image space; the C components of the
         # solution are reconstructed at the end (x += U^T (c0 - B y))
@@ -162,15 +171,15 @@ def _fgmres(matvec, pc, b, rec: Optional[RecycleSpace], maxiter: int,
             w = w - C.T @ bk
             parts = [bk]
         Vk = V[:k + 1]
-        wnorm_pre = torch.linalg.norm(w)
-        h1 = Vk @ w
+        h1, wnorm_pre = dist.proj_norm(Vk, w)
         w = w - Vk.T @ h1
-        h2 = Vk @ w
         if reorth_eta > 0.0:
-            keep = torch.linalg.norm(w) < reorth_eta * wnorm_pre
-            h2 = h2 * keep
+            h2, wnorm_mid = dist.proj_norm(Vk, w)
+            h2 = h2 * (wnorm_mid < reorth_eta * wnorm_pre)
+        else:
+            h2 = dist.proj(Vk, w)
         w = w - Vk.T @ h2
-        wnorm = torch.linalg.norm(w)
+        wnorm = dist.norm(w)
         V[k + 1] = w / torch.where(wnorm > 0, wnorm, torch.ones_like(wnorm))
         col = torch.cat([h1 + h2, torch.stack([wnorm, wnorm_pre])] + parts)
         col = col.cpu().numpy()

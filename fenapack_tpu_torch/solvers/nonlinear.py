@@ -94,18 +94,20 @@ class NonlinearSolver:
 
     def residual_of(self, w: torch.Tensor):
         """High-precision residual F(w) (velocity Dirichlet rows zeroed;
-        for enclosed flow the continuity part projected onto zero mean) and
-        its norm as a 0-dim tensor."""
-        asm, n_u = self.asm, self.n_u
+        for enclosed flow the continuity part projected onto zero mean over
+        the real pressure dofs) and its norm as a 0-dim tensor.  ``w`` is
+        whole; F is in the solver's layout (``oseen.dist``: the rank's rows
+        on the row-sharded path)."""
+        asm, n_u, o = self.asm, self.n_u, self.oseen
         dt_hi = asm.dtype
-        cfg = self.oseen.config
+        cfg = o.config
         ru, rp = asm.residual(w[:n_u].to(dt_hi), w[n_u:].to(dt_hi),
                               supg=cfg.system_supg,
                               compute32=cfg.krylov.hi_res_f32)
         if self.enclosed:
-            rp = rp - torch.mean(rp)
-        F = torch.cat([self.oseen.free_u.to(dt_hi) * ru, rp])
-        return F, torch.linalg.norm(F)
+            rp = o.zero_mean_p(rp)
+        F = torch.cat([o.dist.rows(o.free_u, "u").to(dt_hi) * ru, rp])
+        return F, o.dist.norm(F)
 
     def solve(self, w0: Optional[torch.Tensor] = None, *, rtol: float = 1e-5,
               max_steps: int = 25, damping: float = 1.0) -> NonlinearResult:
@@ -136,7 +138,7 @@ class NonlinearSolver:
                            / max(result.bnorm, 1e-300))
             dw = result.x
             if self.enclosed:
-                dw = torch.cat([dw[:n_u], dw[n_u:] - torch.mean(dw[n_u:])])
+                dw = torch.cat([dw[:n_u], o.zero_mean_p(dw[n_u:])])
             w = w + damping * dw
         return NonlinearResult(w=w, nonlinear_res=res_hist,
                                linear_iters=it_hist, linear_resnorms=rn_hist,

@@ -29,7 +29,19 @@ combination) and the preconditioner's velocity operator alone under
 The round schedule is Python float arithmetic on the host: one host sync
 per round (the true residual's norm) on top of FGMRES's one per iteration.
 
-Monolithic vector layout: ``x = [u_x (n2); u_y (n2)[; u_z (n2)]; p (n1)]``.
+Monolithic vector layout: ``x = [u_x (n2); u_y (n2)[; u_z (n2)]; p (n1)]``,
+n2 and n1 the assembler's (alignment-padded) sizes.  Padding rows are
+identity rows: the velocity padding joins the Dirichlet mask, the pressure
+padding adds ``p_pad * p`` to the continuity rows and is masked in the Ap
+and Mp subsolves, and the enclosed-flow projections run over the real
+pressure dofs.
+
+The solver's vectors are laid out by ``self.dist``
+(:mod:`fenapack_tpu_torch.ops.dist`): whole on one device; over the
+ranks of the row-sharded path after :meth:`OseenSolver.distribute`
+(:mod:`fenapack_tpu_torch.parallel.sharding`), where the right-hand side,
+the Krylov vectors and the solution are the rank's rows and the wind is
+whole.
 """
 from __future__ import annotations
 
@@ -43,6 +55,7 @@ from ..fem.dofmap import DirichletBC, merge_bcs
 from ..ops import subsolve
 from ..ops.sparse import ELL
 from .config import SolverConfig, SubsolveConfig
+from ..ops.dist import LOCAL, zero_mean
 from .fieldsplit import make_fieldsplit_upper
 from .krylov import (FGMRESResult, empty_recycle, fgmres, fgmres_dr,
                      refresh_recycle)
@@ -101,6 +114,8 @@ class OseenSolver:
         self.n = self.n_u + n1
 
         bc_mask_u, bc_vals_u = merge_bcs(bcs, self.n_u)
+        # alignment-padding velocity dofs are pinned to identity rows
+        bc_mask_u = np.maximum(bc_mask_u, 1.0 - asm._u_active_np)
         self.bc_mask_u = torch.as_tensor(bc_mask_u, dtype=dt, device=dev)
         self.bc_vals_u = torch.as_tensor(bc_vals_u, dtype=dt, device=dev)
         self.free_u = 1.0 - self.bc_mask_u
@@ -116,15 +131,51 @@ class OseenSolver:
             mask_p[pcd_dofs] = 1.0
             self.pcd_mask = torch.as_tensor(mask_p, dtype=dt, device=dev)
         self._nullspace = enclosed and not self.has_pcd_bcs
-
-        c = asm.const
-        self._ap_factory = self._make_spd_solver(
-            c.Ap, asm.pat_p1, self.pcd_mask, config.pcd.ap,
-            hierarchy=ap_hierarchy, nullspace=self._nullspace)
-        self._mp_factory = self._make_spd_solver(
-            c.Mp, asm.pat_p1, None, config.pcd.mp)
+        # padded pressure dofs are pinned inside every pressure subsolve
+        p_pad = 1.0 - asm._p_active_np
+        self.has_p_pad = bool(p_pad.any())
+        self.p_pad = (torch.as_tensor(p_pad, dtype=dt, device=dev)
+                      if self.has_p_pad else None)
         self.ap_hierarchy = ap_hierarchy
         self.velocity_hierarchy = velocity_hierarchy
+        self.dist = LOCAL
+        self._build_subsolves()
+
+    @staticmethod
+    def _union(a: Optional[torch.Tensor], b: Optional[torch.Tensor]):
+        """The union of two 0/1 masks, either of which may be None."""
+        if a is None:
+            return b
+        if b is None:
+            return a
+        return torch.maximum(a, b)
+
+    def _build_subsolves(self):
+        """The Ap and Mp subsolve factories (their setup: dense inverses,
+        spectral bounds) in the layout of ``self.dist``."""
+        asm, cfg, c = self.asm, self.config, self.asm.const
+        self._ap_factory = self._make_spd_solver(
+            c.Ap, asm.pat_p1, self._union(self.pcd_mask, self.p_pad),
+            cfg.pcd.ap, hierarchy=self.ap_hierarchy,
+            nullspace=self._nullspace)
+        self._mp_factory = self._make_spd_solver(
+            c.Mp, asm.pat_p1, self.p_pad, cfg.pcd.mp)
+
+    def zero_mean_p(self, p: torch.Tensor) -> torch.Tensor:
+        """The pressure ``p`` (in this solver's layout) with its mean over
+        the real pressure dofs removed: the enclosed-flow projection."""
+        if not self.has_p_pad:
+            return zero_mean(p, dist=self.dist)
+        return zero_mean(p, self.dist.rows(self.asm.p_active, "p"),
+                         self.asm.n1_real, self.dist)
+
+    def distribute(self, dist):
+        """Lay this solver's vectors out as ``dist``: the row-sharded path
+        (:class:`fenapack_tpu_torch.parallel.sharding.ShardedOseen`, which
+        has sharded the assembler already).  Rebuilds the subsolves; the
+        masks stay full-length and each closure takes the rank's rows."""
+        self.dist = dist
+        self._build_subsolves()
 
     # -------------------------------------------------------------- #
     @staticmethod
@@ -139,14 +190,16 @@ class OseenSolver:
                          hierarchy=None, nullspace: bool = False):
         """Return a factory for the subsolver of an SPD pressure operator
         (Ap or Mp): setup (dense inverse, spectral bounds) runs here, the
-        closure is built per pipeline."""
-        dt = self.dtype
+        closure is built per pipeline.  ``mask`` is full-length."""
+        dt, dist = self.dtype, self.dist
         if cfg.method == "lu":
             bc = (torch.zeros(op.shape[0], dtype=dt, device=self.asm.device)
                   if mask is None else mask)
-            solve = subsolve.masked_spd_solver_dense(op, pattern, bc, dt,
-                                                     nullspace=nullspace)
+            solve = subsolve.masked_spd_solver_dense(
+                op, pattern, bc, dt, nullspace=nullspace, dist=dist)
             return lambda: solve
+        if mask is not None:
+            mask = dist.rows(mask, "p")
         if cfg.method == "lumped":
             dinv = subsolve.lumped_inverse(op).to(dt)
             if mask is None:
@@ -162,7 +215,8 @@ class OseenSolver:
             if cfg.bounds is not None:
                 lmin, lmax = cfg.bounds
             else:
-                lmin, lmax = subsolve.power_bounds(mv, dinv, op.shape[0])
+                lmin, lmax = subsolve.power_bounds(mv, dinv, op.shape[0],
+                                                   dist=dist)
             return lambda: subsolve.chebyshev_solver(mv, dinv, lmin, lmax,
                                                      cfg.iters)
         if cfg.method == "gmg":
@@ -177,16 +231,25 @@ class OseenSolver:
                     f"Dirichlet rows are {sorted(want)}")
             from .gmg import make_gmg_solver
             solve = make_gmg_solver(hierarchy, cfg, dt)
+            if dist.size > 1:
+                # the hierarchy's levels are not the solver's padded space:
+                # its V-cycle runs whole on every rank
+                whole = solve
+                solve = lambda b: dist.rows(whole(dist.full(b, "p")), "p")
             return lambda: solve
         raise NotImplementedError(
             f"subsolve method {cfg.method!r} is not ported")
 
     def pcd_apply(self):
         """The PCD apply ``pcd(kp, r_p)`` with fresh subsolve closures."""
-        return make_pcd_apply(self.config.pcd.variant, self._ap_factory(),
-                              self._mp_factory(), self.pcd_mask,
-                              nullspace=self._nullspace, theta=self.theta,
-                              inv_dt=self.inv_dt)
+        dist = self.dist
+        return make_pcd_apply(
+            self.config.pcd.variant, self._ap_factory(), self._mp_factory(),
+            None if self.pcd_mask is None else dist.rows(self.pcd_mask, "p"),
+            nullspace=self._nullspace,
+            active=(dist.rows(self.asm.p_active, "p") if self.has_p_pad
+                    else None),
+            theta=self.theta, inv_dt=self.inv_dt, dist=dist)
 
     # -------------------------------------------------------------- #
     def _operator_values_raw(self, wind: torch.Tensor, hi: bool = True):
@@ -216,15 +279,22 @@ class OseenSolver:
 
     def _matvec_factory(self, A1vals: torch.Tensor,
                         R: Optional[torch.Tensor] = None, hi: bool = False):
-        """Bc-masked monolithic matvec.  ``hi`` uses the high-precision
-        operators (f64 BSR under ``hi_block``: the K1 kernel on CUDA)."""
-        asm = self.asm
+        """Bc-masked monolithic matvec, identity on the padding rows.
+        ``hi`` uses the high-precision operators (f64 BSR under
+        ``hi_block``: the K1 kernel on CUDA).  The input is gathered whole
+        once (``dist.full``); every product reads the whole vector and
+        gives this rank's rows."""
+        asm, dist = self.asm, self.dist
         n2, n_u, d = asm.n2, self.n_u, self.d
+        n_u_loc = n_u // dist.size
         c = asm.const_hi if hi else asm.const
         pat = asm.pat_p2_hi if hi else asm.pat_p2
         A1 = pat.matrix(A1vals)
-        free_u = self.free_u.to(A1vals.dtype)
-        bc_u = self.bc_mask_u.to(A1vals.dtype)
+        free_g = self.free_u.to(A1vals.dtype)
+        free_u = dist.rows(free_g, "u")
+        bc_u = dist.rows(self.bc_mask_u, "u").to(A1vals.dtype)
+        p_pad = (dist.rows(self.p_pad, "p").to(A1vals.dtype)
+                 if self.has_p_pad else None)
 
         if isinstance(A1, ELL):
             # ELL: A1 and the reaction blocks share one pattern, and the
@@ -249,11 +319,14 @@ class OseenSolver:
                 return torch.cat(ys)
 
         def matvec(x):
-            xu = free_u * x[:n_u]
-            p = x[n_u:]
+            xg = dist.full(x, "w")
+            xu = free_g * xg[:n_u]
+            p = xg[n_u:]
             comps = [xu[a * n2:(a + 1) * n2] for a in range(d)]
-            yu = free_u * velocity(xu, comps, p) + bc_u * x[:n_u]
+            yu = free_u * velocity(xu, comps, p) + bc_u * x[:n_u_loc]
             yp = sum(c.D[a].mv(comps[a]) for a in range(d))
+            if p_pad is not None:
+                yp = yp + p_pad * x[n_u_loc:]    # identity on padding rows
             return torch.cat([yu, yp])
         return matvec
 
@@ -267,12 +340,16 @@ class OseenSolver:
             from .gmg import dense_velocity_block
             A = dense_velocity_block(self.asm.pat_p2, A1vals, R, self.d)
             free = self.free_u
-            A = free[:, None] * A * free[None, :] + torch.diag(self.bc_mask_u)
-            return subsolve.dense_lu_solver(A)
+            # free A free + I_bc, in place (the block is the largest array
+            # of the solve: 23,048^2 in f64 at step level 2)
+            A.mul_(free[:, None]).mul_(free[None, :])
+            A.diagonal().add_(self.bc_mask_u)
+            return subsolve.dense_lu_solver(A, self.dist, "u")
         if cfg.method in ("jacobi", "chebyshev", "minres"):
             from .gmg import velocity_block_operator
-            mv, dinv = velocity_block_operator(self.asm.pat_p2, A1vals, R,
-                                               self.bc_mask_u)
+            mv, dinv = velocity_block_operator(
+                self.asm.pat_p2, A1vals, R,
+                self.dist.rows(self.bc_mask_u, "u"))
             iters = cfg.iters
             if cfg.method == "jacobi":
                 omega = 0.7
@@ -289,7 +366,7 @@ class OseenSolver:
                 def solve(b):
                     x = torch.zeros_like(b)
                     for _ in range(max(1, iters // 4)):
-                        x = _minres_smooth(mv, dinv, 4, b, x)
+                        x = _minres_smooth(mv, dinv, 4, b, x, self.dist)
                     return x
                 return solve
             lmin, lmax = cfg.bounds or (0.1, 2.0)
@@ -302,7 +379,8 @@ class OseenSolver:
                 newton=self.linearization == "newton",
                 fine_values=(A1vals, R), theta=self.theta,
                 inv_dt=self.inv_dt,
-                supg=self.config.jpc_supg or self.config.system_supg)
+                supg=self.config.jpc_supg or self.config.system_supg,
+                dist=self.dist)
         raise NotImplementedError(
             f"velocity method {cfg.method!r} is not ported")
 
@@ -321,10 +399,14 @@ class OseenSolver:
             wind, surface=(cfg.pcd.variant == "BRM2")).to(self.dtype))
         a_solve = self._velocity_solver(A1vals, wind, R=R)
         pcd = self.pcd_apply()
-        bt_mv = lambda p: torch.cat([c.DT[a].mv(p) for a in range(self.d)])
-        return make_fieldsplit_upper(self.n_u, a_solve,
+        dist = self.dist
+
+        def bt_mv(p):
+            pg = dist.full(p, "p")
+            return torch.cat([c.DT[a].mv(pg) for a in range(self.d)])
+        return make_fieldsplit_upper(self.n_u // dist.size, a_solve,
                                      lambda r_p: pcd(kp, r_p), bt_mv,
-                                     self.free_u)
+                                     dist.rows(self.free_u, "u"))
 
     def _compute_pipeline(self, wind: torch.Tensor):
         """``(matvec, pc)`` in the compute dtype at ``wind``, from one
@@ -349,7 +431,7 @@ class OseenSolver:
             pc = (lambda p: lambda r: p(r.to(self.dtype)).to(b.dtype))(pc)
         kw = dict(maxiter=kcfg.maxiter, rtol=rtol, reorth_eta=kcfg.reorth_eta)
         if rec is None:
-            return fgmres(matvec, pc, b, **kw), None
+            return fgmres(matvec, pc, b, dist=self.dist, **kw), None
         return fgmres_dr(matvec, pc, b, rec, **kw)
 
     # -------------------------------------------------------------- #
@@ -427,7 +509,7 @@ class OseenSolver:
                 # the operator changed since the space was built
                 rec = refresh_recycle(matvec_hi, rec)
             res, rec = self._krylov(matvec_hi, pc, b64, rtol, rec)
-            rn = torch.linalg.norm(b64 - matvec_hi(res.x))
+            rn = self.dist.norm(b64 - matvec_hi(res.x))
             return res.x, res.iters, rn, res, rec
 
         def rounds(wind, b, rec):
@@ -441,7 +523,7 @@ class OseenSolver:
                 # the operator changed since the space was built
                 rec = refresh_recycle(matvec, rec)
             b64 = b.to(dt_hi)
-            rn_t = torch.linalg.norm(b64)
+            rn_t = self.dist.norm(b64)
             bnorm = rn = float(rn_t)
             syncs, tol = 1, max(rtol * bnorm, 1e-300)
             x, r = torch.zeros_like(b64), b64
@@ -456,7 +538,7 @@ class OseenSolver:
                                         rtol_k, rec)
                 x = x + scale * res.x.to(dt_hi)
                 r = b64 - matvec_hi(x)
-                rn_t = torch.linalg.norm(r)
+                rn_t = self.dist.norm(r)
                 rn = float(rn_t)
                 syncs += 1 + res.host_syncs
                 achieved = rn / scale
@@ -486,7 +568,7 @@ class OseenSolver:
 
         def true_res(wind: torch.Tensor, x: torch.Tensor, b: torch.Tensor):
             r = b.to(dt_hi) - self._hi_matvec(wind)(x.to(dt_hi))
-            return r, torch.linalg.norm(r)
+            return r, self.dist.norm(r)
         return true_res
 
     def solve_ir(self, wind: torch.Tensor, b: torch.Tensor,
@@ -508,14 +590,14 @@ class OseenSolver:
         else:
             matvec, pc = self._compute_pipeline(wind)
         b_hi = b.to(dt_hi)
-        bnorm = float(torch.linalg.norm(b_hi))
+        bnorm = float(self.dist.norm(b_hi))
         tol = max(rtol * bnorm, atol)
         x = torch.zeros_like(b_hi)
         hist, total = [], 0
         for rnd in range(max_rounds):
             if rnd:
                 r = b_hi - matvec_hi(x)
-                rn = float(torch.linalg.norm(r))
+                rn = float(self.dist.norm(r))
             else:
                 r, rn = b_hi, bnorm
             hist.append(rn)

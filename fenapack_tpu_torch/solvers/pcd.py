@@ -33,24 +33,33 @@ from typing import Callable, Optional
 
 import torch
 
+from ..ops.dist import LOCAL, zero_mean
+
 
 def make_pcd_apply(variant: str, ap_solve: Callable, mp_solve: Callable,
                    bc_mask: Optional[torch.Tensor],
-                   nullspace: bool = False, theta: float = 1.0,
-                   inv_dt: float = 0.0) -> Callable:
+                   nullspace: bool = False,
+                   active: Optional[torch.Tensor] = None,
+                   theta: float = 1.0, inv_dt: float = 0.0,
+                   dist=LOCAL) -> Callable:
     """Build ``pcd(kp, r_p) -> z_p``.  ``ap_solve``/``mp_solve`` approximate
     Ap^{-1} (BC masking built in) and Mp^{-1}; ``bc_mask`` is the PCD-BC dof
     mask (1.0 at Dirichlet dofs) or None; ``nullspace`` projects the
-    constant mode out around the Ap solve and from the result; ``theta``
-    and ``inv_dt`` select the unsteady applies."""
+    constant mode out around the Ap solve and from the result, over the
+    ``active`` dofs (1.0 on the real dofs, 0.0 on alignment padding; None:
+    every dof is real); ``theta`` and ``inv_dt`` select the unsteady
+    applies.  ``dist`` lays the pressure vectors out over ranks
+    (:mod:`.dist`; ``bc_mask`` and ``active`` are then the rank's rows)."""
     steady = theta == 1.0 and inv_dt == 0.0
     free = None if bc_mask is None else 1.0 - bc_mask
+    n_active = (dist.sum(active) if nullspace and active is not None
+                else None)
 
     def chop(x):
         return x if free is None else x * free
 
     def project(x):
-        return x - torch.mean(x) if nullspace else x
+        return zero_mean(x, active, n_active, dist) if nullspace else x
 
     def ap_inv(x):
         return project(ap_solve(project(x)))

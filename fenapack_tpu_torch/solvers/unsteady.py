@@ -140,7 +140,7 @@ class UnsteadySolver:
         ru = o.free_u * ru
         rp = rp.to(dtc)
         if self.enclosed:
-            rp = rp - torch.mean(rp)
+            rp = o.zero_mean_p(rp)
         return torch.cat([ru, rp])
 
     def _step_aux(self, u_old: torch.Tensor, u_prev) -> torch.Tensor:
@@ -272,7 +272,7 @@ class UnsteadySolver:
             ru = ru + self._mass(u_prev.to(dt_hi) - u) * (0.5 / self.dt)
         ru = self.oseen.free_u.to(dt_hi) * ru
         if self.enclosed:
-            rp = rp - torch.mean(rp)
+            rp = self.oseen.zero_mean_p(rp)
         F = torch.cat([ru, rp])
         return F, torch.linalg.norm(F)
 

@@ -1,10 +1,22 @@
-"""Multi-rank Oseen solves on the ring path: the port's counterpart of
-``demos/demo_spmd.py``'s ``--path ring``.
+"""Multi-rank Oseen solves: the port's counterpart of ``demos/demo_spmd.py``.
 
-    python -m fenapack_tpu_torch.spmd_demo -l 2 -n 4 [--supg --nu 1e-3]
-        [--vgmg] [--nls newton] [--fused] [--device cuda]
+    python -m fenapack_tpu_torch.spmd_demo -l 2 -n 4 [--path both|gspmd|ring]
+        [--supg --nu 1e-3] [--vgmg] [--nls newton] [--fused]
+        [--device cuda]
 
-Spawns ``-n`` rank processes (one gloo group, :mod:`.parallel.comm`); each
+``--path gspmd`` (:func:`run_gspmd`) spawns ``-n`` rank processes that run
+the single-device solver as one SPMD program over row-sharded ranks
+(:class:`.parallel.sharding.ShardedOseen`, the JAX package's default
+multi-chip path): the step at level ``-l`` with ``row_align = n``, BRM2,
+FGMRES to 1e-6 under a cap of 80 with the JAX package's default subsolves
+(dense velocity block and Ap); with ``--supg`` BASELINE config 5's
+SUPG-stabilized system, both multigrids (the velocity hierarchy seeded by
+the padded assembler) and a cap of 400.  It takes one sharded nonlinear
+step from the initial state and prints the JAX demo's ``[gspmd]`` line,
+then the collectives and milliseconds per FGMRES iteration.  ``both`` (the
+default, as in the JAX demo) runs it and then the ring path.
+
+``--path ring`` spawns ``-n`` rank processes (one gloo group, :mod:`.parallel.comm`); each
 builds the 2D backward-facing step at level ``-l`` (RCM-reordered
 Taylor-Hood, :class:`NSAssembler` ``reorder=True``) and runs the Picard or
 Newton loop whose Oseen solves are distributed over the ranks
@@ -25,12 +37,11 @@ launches of each rank and the exchanges and all-reduces per FGMRES
 iteration.  All ranks share device 0 when ``--device cuda``: their times
 are those of ranks on one card with gloo halos staged through host memory,
 not of one card per rank.  ``--probe`` times the ring path's pieces
-instead (:func:`rank_probe`).  ``--path gspmd`` and ``both`` (the GSPMD
-path of ``parallel/sharding.py``) are refused: they are the next slice of
-the port.
+instead (:func:`rank_probe`).
 
 The functions :func:`rank_run`, :func:`rank_oseen`, :func:`rank_prepare`,
-:func:`rank_probe` and :func:`rank_kernel_check` are what each rank runs;
+:func:`rank_probe`, :func:`rank_kernel_check`, :func:`rank_gspmd` and
+:func:`rank_gspmd_kernel_check` are what each rank runs;
 tests and ``chip_smoke.py`` drive them through
 :func:`.parallel.comm.run_ranks` or a :class:`.parallel.comm.RankPool`.
 """
@@ -48,21 +59,19 @@ from .fem import mesh as meshmod
 from .fem import mesh3d
 from .fem.assemble import NSAssembler
 from .fem.dofmap import DirichletBC
+from . import measure
+from .ops import bsr_spmv as K12
 from .ops import ell_spmv as K3
+from .ops.bsr_spmv import bsr_spmv, bsr_spmv_plain
 from .ops.ell_spmv import (ell_block_spmv, ell_block_spmv_plain, ell_spmv,
                            ell_spmv_plain)
 from .parallel.comm import run_ranks
+from .parallel.sharding import ShardedOseen, make_device_mesh, timed_solve
 from .parallel.spmd_gmg import SPMDPressureGMG, SPMDVelocityGMG
 from .parallel.spmd_pcd import SPMDNonlinearSolver
 from .solvers import gmg
 from .solvers.config import SolverConfig, overrides
 from .solvers.nonlinear import NonlinearSolver
-
-GSPMD_REFUSED = (
-    "--path {path} is not ported: the GSPMD path (parallel/sharding.py: "
-    "ShardedOseen, make_device_mesh, NSAssembler(row_align=)) is the next "
-    "slice of the port; this entry point runs --path ring")
-
 
 def step_inflow(x):
     v = np.zeros((x.shape[0], 2))
@@ -236,11 +245,17 @@ def rank_run(comm, spec: dict) -> dict:
 
 def rank_prepare(comm, specs) -> float:
     """Build (and cache in this rank's process) the distributed solvers of
-    every spec in ``specs``, so that later runs start at once; returns the
-    seconds it took.  Communicates nothing."""
+    every ring spec in ``specs`` (:func:`spec_of`), so that later runs
+    start at once; for a GSPMD spec (:func:`gspmd_spec`, whose solver is
+    built afresh by every run) build its solver once, which fills the
+    pattern cache and starts the device libraries.  Returns the seconds it
+    took.  Communicates nothing."""
     t0 = time.perf_counter()
     for spec in specs:
-        build_solvers(comm, spec)
+        if "row_align" in spec:
+            build_gspmd(spec, comm.device)
+        else:
+            build_solvers(comm, spec)
     return time.perf_counter() - t0
 
 
@@ -390,19 +405,289 @@ def rank_kernel_check(comm, spec: dict, seed: int = 0) -> dict:
 
 
 # --------------------------------------------------------------------- #
+# the GSPMD path (parallel/sharding.py)
+# --------------------------------------------------------------------- #
+
+def gspmd_spec(level: int = 2, *, nu: float = 0.02, supg: bool = False,
+               row_align: int = 4, block: bool = False,
+               hi_block: bool = False, rtol: float = 1e-6,
+               maxiter: int = 80) -> dict:
+    """A run of :func:`rank_gspmd`: the JAX demo's ``--path gspmd`` at step
+    level ``level`` on an assembler with ``row_align`` (a multiple of the
+    rank count), FGMRES to ``rtol`` under ``maxiter`` (400 with ``supg``).
+    ``block``: the BSR layout of ``tests/test_parallel.py`` (tiles of 32,
+    f32 compute constants and preconditioner; ``hi_block`` keeps the f64
+    operators in the same layout)."""
+    return dict(level=level, nu=nu, supg=supg, row_align=row_align,
+                block=block, hi_block=hi_block, rtol=rtol, maxiter=maxiter)
+
+
+def build_gspmd(spec: dict, device) -> NonlinearSolver:
+    """The single-device solver of ``spec`` (a fresh one: sharding mutates
+    it).  Without ``supg`` the subsolves are the JAX package's defaults, a
+    dense velocity block and a dense Ap; with it the SUPG-stabilized system
+    and both multigrids, the velocity hierarchy seeded by the padded
+    assembler."""
+    dt = torch.float64
+    over = {"pcd.variant": "BRM2", "dtype": "float64",
+            "krylov.rtol": spec["rtol"], "krylov.maxiter": spec["maxiter"],
+            "velocity.method": "lu", "pcd.ap.method": "lu"}
+    kw = {}
+    if spec["block"]:
+        kw = dict(block_size=32, block_dtype=torch.float32,
+                  hi_block=spec["hi_block"])
+        over["dtype"] = "float32"
+    if spec["supg"]:
+        hier = gmg.build_hierarchy(meshmod.backward_step_mesh(0),
+                                   spec["level"])
+        mesh = hier.fine
+        over.update({"system_supg": True, "krylov.maxiter": 400,
+                     "velocity.method": "gmg", "velocity.smooth_iters": 3,
+                     "velocity.cycles": 2, "pcd.ap.method": "gmg"})
+    else:
+        mesh = meshmod.backward_step_mesh(spec["level"])
+    asm = NSAssembler(mesh, spec["nu"], device=device, dtype=dt,
+                      row_align=spec["row_align"], **kw)
+    bcs = [DirichletBC.velocity(asm.W, [meshmod.WALL],
+                                lambda x: np.zeros((x.shape[0], 2))),
+           DirichletBC.velocity(asm.W, [meshmod.INFLOW], step_inflow)]
+    ap_h = v_h = None
+    if spec["supg"]:
+        ap_h = gmg.PressureHierarchy(hier, dt, device=device,
+                                     pcd_markers=[meshmod.OUTFLOW])
+        v_h = gmg.VelocityHierarchy(hier, spec["nu"], dt, device=device,
+                                    bc_markers=[meshmod.WALL,
+                                                meshmod.INFLOW],
+                                    fine_asm=asm)
+    return NonlinearSolver(asm, bcs, overrides(SolverConfig(), over),
+                           pcd_marker=meshmod.OUTFLOW, ap_hierarchy=ap_h,
+                           velocity_hierarchy=v_h)
+
+
+def _reset_launches():
+    K3.reset_launches()
+    K12.reset_launches()
+
+
+def gspmd_single(spec: dict, device) -> dict:
+    """The unsharded step of ``spec`` on one device (the same padded
+    assembler): the state (NumPy), the count, the wall seconds of the step
+    and of its FGMRES loop alone, the kernel launches, and ``relres(w)``:
+    the f64 true relative residual of the step's linear system at the
+    update ``w - w0`` of any state ``w`` of that layout (this one's, or a
+    sharded run's)."""
+    nl = build_gspmd(spec, device)
+    o = nl.oseen
+    w0 = nl.initial_state()
+    _sync(device)
+    _reset_launches()
+    t0 = time.perf_counter()
+    F = nl.residual_of(w0)[0].to(o.dtype)
+    res, fgmres = timed_solve(o, w0[:nl.n_u], -F)
+    w1 = w0 + res.x
+    _sync(device)
+    wall = time.perf_counter() - t0
+    launches = measure.launch_counts()
+    true_res = o.make_true_residual()
+    w64 = w0.to(torch.float64)
+    b = -nl.residual_of(w0)[0].to(torch.float64)
+
+    def relres(w) -> float:
+        x = torch.as_tensor(w, dtype=torch.float64, device=device) - w64
+        return float(true_res(w64[:nl.n_u], x, b)[1] / torch.linalg.norm(b))
+    return dict(w=w1.cpu().numpy(), iters=int(res.iters), wall=wall,
+                fgmres=fgmres, launches=launches, relres=relres)
+
+
+def rank_gspmd(comm, spec: dict, repeat: int = 1) -> dict:
+    """One rank's share of :class:`ShardedOseen`'s step of ``spec`` from
+    the initial state, taken ``repeat`` times by the same sharded solver.
+    Returns the first step's state (whole, NumPy), the digest of every
+    step's state, the count, the setup and step seconds and the seconds of
+    the step's FGMRES loop alone, this rank's collectives and kernel
+    launches during the first step, the peak device memory (GiB) of the
+    rank's process during the call above what it held when the call began,
+    and the sizes."""
+    dev = comm.device
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    nl = build_gspmd(spec, dev)
+    sh = ShardedOseen(nl, make_device_mesh(comm.size))
+    setup = time.perf_counter() - t0
+    w0 = nl.initial_state()
+    _sync(dev)
+    comm.reset_counts()
+    _reset_launches()
+    t0 = time.perf_counter()
+    w1, iters, _ = sh.step(w0)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    counts, launches = dict(comm.counts), measure.launch_counts()
+    fgmres = sh.fgmres_seconds
+    w = w1.cpu().numpy()
+    digests = [hashlib.sha1(w.tobytes()).hexdigest()]
+    for _ in range(repeat - 1):
+        wr = sh.step(w0)[0].cpu().numpy()
+        digests.append(hashlib.sha1(wr.tobytes()).hexdigest())
+    asm = nl.asm
+    peak = ((torch.cuda.max_memory_allocated(dev) - base) / 2**30
+            if cuda else 0.0)
+    return dict(w=w, digest=digests[0], digests=digests, peak_gib=peak,
+                fgmres=fgmres, iters=int(iters), wall=wall, setup=setup,
+                counts=counts, launches=launches,
+                n_dof=int(nl.n), n_real=int(asm.dim * asm.n2_real
+                                            + asm.n1_real),
+                rank=comm.rank, size=comm.size)
+
+
+def _gspmd_operators(nl):
+    """``(name, kind, op, R)`` of every operator the sharded step of ``nl``
+    applies on this rank, at the initial wind: the constant operators of
+    both precision sets, A1 of the system (and of the preconditioner with
+    the streamline diffusion), the Newton reaction blocks with it, Kp;
+    every multigrid level's operator and restriction (whole on every
+    rank).  ``kind``: ``ell`` (single), ``block`` (velocity block),
+    ``bsr``."""
+    asm, o = nl.asm, nl.oseen
+    wind = nl.initial_state()[:nl.n_u].to(asm.dtype)
+    out = []
+    sets = [("", asm.const)] + ([("hi ", asm.const_hi)]
+                               if asm.const_hi is not asm.const else [])
+    for tag, c in sets:
+        named = [("L", c.L), ("Mp", c.Mp), ("Ap", c.Ap), ("M2", c.M2)]
+        named += [(f"D_{a}", op) for a, op in enumerate(c.D)]
+        named += [(f"B^T_{a}", op) for a, op in enumerate(c.DT)]
+        for name, op in named:
+            if op is not None:
+                out.append((tag + name, "bsr" if hasattr(op, "tiles")
+                            else "ell", op, None))
+    A1, _ = o._operator_values(wind)
+    p2 = asm.pat_p2
+    if p2.block:
+        out.append(("A1", "bsr", p2.matrix(A1), None))
+    else:
+        R = asm.newton_reaction_values(wind)
+        out.append(("A1", "block", p2.matrix(A1), None))
+        out.append(("A1 + R", "block", p2.matrix(A1), R))
+    kp = asm.pat_p1.matrix(asm.kp_values(wind, surface=True).to(o.dtype))
+    out.append(("Kp", "bsr" if asm.pat_p1.block else "ell", kp, None))
+    vh, ph = o.velocity_hierarchy, o.ap_hierarchy
+    if vh is not None:
+        vals = gmg.velocity_gmg_values(vh, wind, o.bc_mask_u, o.dtype,
+                                       supg=True)
+        for l, (A1l, _) in enumerate(vals["levels"][:-1]):
+            out.append((f"velocity level {l}", "block",
+                        vh.asms[l].pat_p2.matrix(A1l), None))
+        for l, t in enumerate(vh.transfers):
+            out.append((f"P2 restriction {l}", "ell", t._PT, None))
+    if ph is not None:
+        for l, lev in enumerate(ph.levels):
+            out.append((f"Ap level {l}", "ell", lev.Ap, None))
+        for l, t in enumerate(ph.transfers):
+            out.append((f"P1 restriction {l}", "ell", t._PT, None))
+    return out
+
+
+def rank_gspmd_kernel_check(comm, spec: dict, seed: int = 0) -> dict:
+    """Every operator the sharded step of ``spec`` applies on this rank
+    (:func:`_gspmd_operators`: the rank's rows over global columns, or
+    whole), through its kernel against the plain version on the same
+    seeded inputs: K3 single and block products in f64 and in f32, BSR in
+    its own dtype (K2 for f32 tiles, K1 for f64).  Returns per operator its
+    rank-local shape, kernel, dtype and the largest absolute and relative
+    differences."""
+    dev = comm.device
+    nl = build_gspmd(spec, dev)
+    ShardedOseen(nl, make_device_mesh(comm.size))
+    gen = torch.Generator().manual_seed(seed + comm.rank)
+    rows = []
+
+    def record(name, kernel, dtype, shape, y, ref):
+        abs_err = float((y - ref).abs().max())
+        rows.append(dict(name=name, kernel=kernel, dtype=dtype,
+                         shape=[int(v) for v in shape], abs_err=abs_err,
+                         rel_err=abs_err / max(float(ref.abs().max()),
+                                               1e-300)))
+    for name, kind, op, R in _gspmd_operators(nl):
+        if kind == "bsr":
+            x = torch.randn(op.n_cols, generator=gen,
+                            dtype=torch.float64).to(dev, op.tiles.dtype)
+            n_rows = op.nbr.shape[0] * op.tiles.shape[1]
+            n_rows = min(n_rows, op.pat.n_rows_full)
+            y = bsr_spmv(op.nbr, op.tiles, x, n_rows, op.n_cols)
+            ref = bsr_spmv_plain(op.nbr, op.tiles, x, n_rows, op.n_cols)
+            dt = "f32" if op.tiles.dtype == torch.float32 else "f64"
+            record(name, "bsr_spmv_" + dt, dt, op.tiles.shape, y, ref)
+            continue
+        cols, vals = op.cols, op.vals
+        n_cols = op.n_cols
+        for dt, tdt in (("f64", torch.float64), ("f32", torch.float32)):
+            v = vals.to(tdt).contiguous()
+            if kind == "block":
+                x = torch.randn((2, n_cols), generator=gen,
+                                dtype=torch.float64).to(dev, tdt)
+                Rt = None if R is None else R.to(tdt).contiguous()
+                y = ell_block_spmv(cols, v, Rt, x, n_cols)
+                ref = ell_block_spmv_plain(cols, v, Rt, x, n_cols)
+                record(name, "ell_block_spmv", dt, cols.shape, y, ref)
+            else:
+                x = torch.randn(n_cols, generator=gen,
+                                dtype=torch.float64).to(dev, tdt)
+                y = ell_spmv(cols, v, x, n_cols)
+                ref = ell_spmv_plain(cols, v, x, n_cols)
+                record(name, "ell_spmv", dt, cols.shape, y, ref)
+    return dict(rank=comm.rank, ops=rows)
+
+
+def run_gspmd(args) -> list:
+    """``--path gspmd``: :func:`rank_gspmd` on ``-n`` rank processes;
+    prints the JAX demo's ``[gspmd]`` line, the backend, and the
+    collectives and milliseconds per FGMRES iteration."""
+    n = args.devices
+    spec = gspmd_spec(args.level, nu=args.nu, supg=args.supg, row_align=n)
+    t0 = time.perf_counter()
+    res = run_ranks(rank_gspmd, n, spec, device=args.device,
+                    timeout=3000.0)
+    total = time.perf_counter() - t0
+    r0 = res[0]
+    if any(r["digest"] != r0["digest"] for r in res):
+        raise RuntimeError("the ranks' states differ after the step")
+    where = (f"{n} ranks on one card, gloo"
+             if torch.device(args.device).type == "cuda"
+             else f"{n} ranks on the CPU, gloo")
+    print(f"[gspmd] {n} devices: one sharded nonlinear step, "
+          f"{r0['iters']} FGMRES iters, {r0['wall']:.1f} s ({where}; "
+          f"{total:.1f} s with rank start-up and setup)", flush=True)
+    its = max(r0["iters"], 1)
+    print(f"[gspmd] backend: torch.distributed gloo, {n} rank processes "
+          f"on {args.device}; {r0['n_dof']} dofs ({r0['n_real']} real, "
+          f"row_align {spec['row_align']}); FGMRES loop {r0['fgmres']:.3f} "
+          f"s of the step; per FGMRES iteration (rank 0): "
+          + json.dumps({k: round(v / its, 2) for k, v in
+                        r0["counts"].items()})
+          + f", {r0['fgmres'] / its * 1e3:.2f} ms", flush=True)
+    return res
+
+
+# --------------------------------------------------------------------- #
 # entry point
 # --------------------------------------------------------------------- #
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
-        description="multi-rank Oseen solves on the ring path")
+        description="multi-rank Oseen solves: the GSPMD path (the "
+                    "single-device solver on row-sharded ranks) and the "
+                    "ring path")
     ap.add_argument("-l", "--level", type=int, default=1)
     ap.add_argument("-n", "--devices", type=int, default=4,
                     help="rank processes (all on one card with --device "
                          "cuda)")
     ap.add_argument("--nu", type=float, default=0.02)
     ap.add_argument("--path", choices=["gspmd", "ring", "both"],
-                    default="ring")
+                    default="both")
     ap.add_argument("--supg", action="store_true",
                     help="SUPG-stabilized system + velocity multigrid "
                          "(BASELINE config 5: --nu 1e-3 for Re 2000)")
@@ -442,16 +727,19 @@ def probe(args):
 
 
 def main(argv=None):
+    """Run the paths of ``--path``; returns the ring path's per-rank
+    results when it ran, else the GSPMD path's."""
     ap = parser()
     args = ap.parse_args(argv)
-    if args.path != "ring":
-        ap.error(GSPMD_REFUSED.format(path=args.path))
     if args.probe:
         return probe(args)
     if args.supg and args.nls == "newton":
         ap.error("--supg stabilizes with the lagged (Picard) operator; the "
                  "Newton reaction is not the Jacobian of the stabilized "
                  "residual: use --nls picard for high-Re runs")
+    gspmd = run_gspmd(args) if args.path in ("gspmd", "both") else None
+    if args.path == "gspmd":
+        return gspmd
     spec = spec_of(args.level, nu=args.nu, supg=args.supg, nls=args.nls,
                    fused=args.fused, max_steps=args.max_steps,
                    vgmg=args.vgmg or None)

@@ -16,8 +16,8 @@ against the port's single-device operators and its own 1-rank run.
     enclosed cavity on 2 ranks against 1;
   * one Oseen solve on the 3D duct at level 0 (one hop for 2 ranks), 2
     ranks against 1;
-  * ``spmd_demo.main`` with 2 rank processes at l0; ``--path gspmd``
-    refused; the default device is ``cuda``.
+  * ``spmd_demo.main`` with 2 rank processes at l0, both paths by
+    default and ``--path gspmd`` alone; the default device is ``cuda``.
 
 Light runs use thread ranks; the multi-step runs use rank processes
 (``RankPool``), whose collectives are several times faster here.
@@ -302,13 +302,19 @@ def test_demo_main_two_rank_processes(capsys):
 
 
 def test_demo_refuses_gspmd_and_defaults_to_cuda(capsys):
-    for path in ("gspmd", "both"):
-        with pytest.raises(SystemExit) as e:
-            spmd_demo.main(["--path", path])
-        assert e.value.code == 2
-        assert "next slice" in capsys.readouterr().err
+    """``--path gspmd`` is no longer refused: one sharded step at l0 on 2
+    rank processes on the CPU, the same state on both ranks; ``--device``
+    still defaults to the card and ``--path`` to both paths."""
+    res = spmd_demo.main(["--path", "gspmd", "-l", "0", "-n", "2",
+                          "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "[gspmd] 2 devices: one sharded nonlinear step" in out
+    assert "2 ranks on the CPU, gloo" in out and "[ring]" not in out
+    assert len(res) == 2 and res[0]["digest"] == res[1]["digest"]
+    assert 0 < res[0]["iters"] < 80 and res[0]["size"] == 2
     args = spmd_demo.parser().parse_args([])
     assert args.device == "cuda"
+    assert args.path == "both"
     # the JAX demo's velocity subsolve unless --supg or --vgmg
     assert not args.vgmg
 
