@@ -158,8 +158,9 @@ processes), in phases that each print one or more lines:
  29. anderson - ``solve_anderson(m=3)`` and plain ``solve_fused`` at step
                level 1 to a nonlinear 1e-8: both converge, states within
                1e-6; counts printed; the card's Anderson run against the
-               CPU's: as many steps, each count within 1, states within
-               1e-6.
+               CPU's (which runs beside phases 29-31 and is read after
+               phase 31, as ``anderson-reference``): as many steps, each
+               count within 1, states within 1e-6.
  30. stage-breakdown - phase 4's ``stage_breakdown``: seven finite keys,
                every stage time > 0.
  31. surface - the manufactured solution through ``set_body_force`` at n =
@@ -207,7 +208,8 @@ processes), in phases that each print one or more lines:
                the card and on the CPU: counts within 1, states within 1e-6.
  35. gspmd-kernels - the GSPMD path (``parallel/sharding.py``:
                ``ShardedOseen``, the single-device solver on row-sharded
-               ranks) on the same 4 rank processes, for (a) the JAX demo's
+               ranks) on the same 4 rank processes (which build its solvers at
+               the phase's start), for (a) the JAX demo's
                ``--path gspmd`` at step l2 (``row_align`` 4, dense velocity
                block and Ap), (b) config 5 with both multigrids and (c) the
                block layout (b = 32, f32 compute and f64 operators in BSR,
@@ -232,6 +234,26 @@ processes), in phases that each print one or more lines:
                during the case and the kernel launches on the ranks (K3 on
                (a), (b); K2 and K1 on (c)).
 
+ 37. entry-points - the three entry points at their JAX demos' surface,
+               each through the ``main(argv)`` that ``python -m`` runs, in
+               this process: ``cylinder -l 1 --unsteady --dtype float64``
+               (the exact loop, 3 BDF2 steps at dt 0.0125, three Picard
+               solves each, host functionals streamed to ``--hist``),
+               ``cylinder -l 0 --ls direct`` (2D-1, mixed: dense LU
+               subsolves in f32 around the f64 system), ``step3d -l 2 --supg
+               --nu 2e-3 --dtype float32 --max-steps 2`` (the f32 block
+               product at d = 3 on the SUPG levels) and ``cavity -l 2
+               --continuation --Re 400`` (f32, dense LU, Re 100 -> 200 ->
+               400, VTK parsed); asserts convergence, the true relative
+               residuals and K3 launches; then K3 against the plain version
+               on every ELL operator of those paths at their final states
+               in f64 and f32 (1e-12, 1e-5), and the times of each path's
+               headline product (the step3d one in f32 and in f64) beside
+               cuSPARSE CSR and the bound.
+
+``--gspmd-prebuild early`` builds the GSPMD solvers beside phases 29-31
+instead of at the start of phase 35 (the A/B of phase 33's time).
+
 The card-against-CPU phases (5, 8, 12, 16, 19, 24, 29) hand their CPU runs
 to two worker processes (spawned, each with (cores - 1) // 2 torch
 threads) and do their card runs meanwhile; only phase 29 prints
@@ -246,6 +268,7 @@ calls from Python (host-bound for the small operators; an operator that
 fits in the 50 MB L2 stays there), and for the headline operators also on
 the device alone with the L2 flushed before each call.
 """
+import argparse
 import atexit
 import contextlib
 import copy
@@ -277,6 +300,8 @@ ELL_SOURCE = "fenapack_tpu_torch/csrc/ell_spmv.cu"
 ELL_REPLACES = "fenapack_tpu/ops/pallas_spmv.py:60"
 ELL_HEADLINE = "A1 velocity level 4"
 CYL_LEVEL, CYL_DT, CYL_STEPS = 2, 0.00625, 40
+# phase 37: the cylinder's exact loop, steps at the command line's dt
+ENTRY_CYL_STEPS, ENTRY_CYL_DT = 3, 0.0125
 CYL_HEADLINE = f"A1 velocity level {CYL_LEVEL}"
 # the JAX package's per-step counts of DFG 2D-1 at level 2 (CPU, f64)
 CYL_JAX_ITERS = [49, 50, 53, 50, 49]
@@ -551,7 +576,15 @@ def rel_diff(a, b):
     return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        description="smoke run of fenapack_tpu_torch on one CUDA GPU")
+    ap.add_argument("--gspmd-prebuild", choices=("early", "late"),
+                    default="late",
+                    help="build the GSPMD solvers of phases 35-36 on the "
+                         "rank processes at the start of phase 35 (late) "
+                         "or beside phases 29-31 (early)")
+    opts = ap.parse_args(argv)
     t_start = time.perf_counter()
     phase_s = {}
 
@@ -610,6 +643,44 @@ def main():
         for pre, fn in (("", kernel), ("plain_", plain), ("library_", call)):
             r[pre + "device_ms"] = measure.device_ms(fn) if fn else None
         return r, why
+
+    def time_ell(kind, pat, vals, R, d, x=None):
+        """:func:`yardsticks` of one ELL product on the pattern ``pat``
+        (single, or the block product over ``d`` components with the
+        reaction blocks ``R`` when given) at ``x`` (default: seeded random
+        values); the library call is one cuSPARSE CSR product per
+        component and value plane."""
+        dt = vals.dtype
+        if x is None:
+            shape = (pat.n_cols,) if kind == "single" else (d, pat.n_cols)
+            x = torch.as_tensor(rng.standard_normal(shape), dtype=dt,
+                                device=dev)
+        if kind == "single":
+            return yardsticks(
+                lambda: ell_spmv.ell_spmv(pat.cols, vals, x, pat.n_cols),
+                lambda: ell_spmv.ell_spmv_plain(pat.cols, vals, x,
+                                                pat.n_cols),
+                measure.library(measure.csr_library(pat, vals), x),
+                measure.ell_bytes(vals, pat.n_cols), 2 * pat.nnz, dt)
+        parts = [(vals, b) for b in range(d)]
+        if R is not None:
+            R = R.to(dt).contiguous()
+            parts += [(R[a, b], b) for a in range(d) for b in range(d)]
+        libs = [measure.library(measure.csr_library(pat, v), x[b])
+                for v, b in parts]
+        calls = [c for c, _ in libs]
+        t, why = yardsticks(
+            lambda: ell_spmv.ell_block_spmv(pat.cols, vals, R, x,
+                                            pat.n_cols),
+            lambda: ell_spmv.ell_block_spmv_plain(pat.cols, vals, R, x,
+                                                  pat.n_cols),
+            ((lambda: [c() for c in calls]) if all(calls) else None,
+             "; ".join(w for _, w in libs if w)),
+            measure.ell_block_bytes(vals, R, d, pat.n_cols),
+            measure.ell_block_flops(vals, R, d), dt)
+        t["bound_nnz_ms"] = measure.bound(
+            measure.ell_block_nnz_bytes(pat, vals, R, d), 0, dt)[0]
+        return t, why
 
     # ---- 2. build ------------------------------------------------------- #
     t0 = time.perf_counter()
@@ -1362,15 +1433,11 @@ def main():
         line = (f"[step3d-kernels] {name:20s} f64 ELL {tuple(vals.shape)}: "
                 f"max rel err {rel} (tol {F64_TOL})")
         if name == "D0":
-            kernel = lambda: ell_spmv.ell_spmv(pat.cols, vals, x, pat.n_cols)
-            plain = lambda: ell_spmv.ell_spmv_plain(pat.cols, vals, x,
-                                                    pat.n_cols)
-            lib = measure.library(measure.csr_library(pat, vals), x)
-            nbytes = measure.ell_bytes(vals, pat.n_cols)
-            s3rec["single"], why = yardsticks(kernel, plain, lib, nbytes,
-                                              2 * pat.nnz, torch.float64)
+            s3rec["single"], why = time_ell("single", pat, vals, None, 1,
+                                            x)
             line += (f"; {json.dumps(s3rec['single'])}; cuSPARSE CSR "
-                     f"{why or 'taken'}; {nbytes} B")
+                     f"{why or 'taken'}; "
+                     f"{measure.ell_bytes(vals, pat.n_cols)} B")
         print(line, flush=True)
         _require(rel <= F64_TOL, f"config 4 {name}: kernel disagrees with "
                  f"plain ({rel} > {F64_TOL})")
@@ -1398,32 +1465,16 @@ def main():
         if l != top:
             continue
         for key, RR in (("block", None), ("block_with_R", R)):
-            kernel = lambda: ell_spmv.ell_block_spmv(pat.cols, A1, RR, x,
-                                                     pat.n_cols)
-            plain = lambda: ell_spmv.ell_block_spmv_plain(pat.cols, A1, RR,
-                                                          x, pat.n_cols)
-            parts = [(A1, b) for b in range(3)]
-            if RR is not None:
-                parts += [(RR[a, b], b) for a in range(3) for b in range(3)]
-            libs = [measure.library(measure.csr_library(pat, v), x[b])
-                    for v, b in parts]
-            calls = [c for c, _ in libs]
-            lib = ((lambda: [c() for c in calls]) if all(calls) else None,
-                   "; ".join(w for _, w in libs if w))
-            nbytes = measure.ell_block_bytes(A1, RR, 3, pat.n_cols)
-            t, why = yardsticks(kernel, plain, lib, nbytes,
-                                measure.ell_block_flops(A1, RR, 3),
-                                torch.float64)
-            nnz_bytes = measure.ell_block_nnz_bytes(pat, A1, RR, 3)
-            t["bound_nnz_ms"] = measure.bound(nnz_bytes, 0,
-                                              torch.float64)[0]
+            t, why = time_ell("block", pat, A1, RR, 3, x)
             s3rec[key] = t
             print(f"[step3d-kernels] {S3_HEADLINE} block product d = 3 "
                   f"{'with' if RR is not None else 'without'} R: "
-                  f"{json.dumps(t)}; {len(parts)} cuSPARSE CSR products "
-                  f"{why or 'taken'}; {nbytes} B padded ELL, {nnz_bytes} B "
-                  f"entries alone (nnz {pat.nnz}, {pat.n_rows} x {pat.K})",
-                  flush=True)
+                  f"{json.dumps(t)}; {3 if RR is None else 12} cuSPARSE CSR "
+                  f"products {why or 'taken'}; "
+                  f"{measure.ell_block_bytes(A1, RR, 3, pat.n_cols)} B "
+                  f"padded ELL, {measure.ell_block_nnz_bytes(pat, A1, RR, 3)}"
+                  f" B entries alone (nnz {pat.nnz}, {pat.n_rows} x "
+                  f"{pat.K})", flush=True)
     del s3levels
     done("step3d-kernels", t0)
 
@@ -1799,8 +1850,9 @@ def main():
                                   maxiter=100)}
     pool = RankPool(SPMD_RANKS, device=dev, timeout=600.0)
     atexit.register(pool.close)
+    early = opts.gspmd_prebuild == "early"
     pool.submit(spmd_demo.rank_prepare, list(spmd_specs.values())
-                + list(gspmd_specs.values()))
+                + (list(gspmd_specs.values()) if early else []))
     t0 = time.perf_counter()
     # both to a nonlinear 1e-8, so that the states agree to 1e-6 (the JAX
     # package's test_anderson_same_solution_as_picard); the CPU's Anderson
@@ -1812,25 +1864,16 @@ def main():
         m=3, rtol=1e-8, max_steps=40))
     plain = nla.solve_fused(rtol=1e-8, max_steps=40)
     diff = rel_diff(g.w, plain.w)
-    cw, ci, cc = job.get()
-    cdiff = rel_diff(g.w, cw)
     print(f"[anderson] step l1 to 1e-8: Anderson(3) iters {g.linear_iters} "
           f"({len(g.linear_iters)} steps, total {g.total_linear_iters}, "
           f"{g.wall_time} s shared-host); plain solve_fused "
           f"{plain.linear_iters} ({len(plain.linear_iters)} steps, total "
           f"{plain.total_linear_iters}, {plain.wall_time} s shared-host); "
-          f"states {diff} "
-          f"apart; CPU Anderson(3) {ci} ({len(ci)} steps, total {sum(ci)}),"
-          f" state {cdiff} from the card's; launches K1 {n['f64']} K2 "
-          f"{n['f32']}", flush=True)
-    _require(g.converged and plain.converged and cc,
-             "Anderson (card or CPU) or plain Picard did not converge")
+          f"states {diff} apart; launches K1 {n['f64']} K2 {n['f32']}",
+          flush=True)
+    _require(g.converged and plain.converged,
+             "Anderson or plain Picard did not converge on the card")
     _require(diff <= 1e-6, f"Anderson and plain Picard differ by {diff}")
-    _require(len(ci) == len(g.linear_iters) and all(
-        abs(a - b) <= 1 for a, b in zip(g.linear_iters, ci)),
-        f"Anderson counts: cuda {g.linear_iters}, cpu {ci}")
-    _require(cdiff <= 1e-6, f"Anderson card and CPU states differ by "
-             f"{cdiff}")
     del ab, nlr, o_hm
     done("anderson", t0)
 
@@ -1848,16 +1891,63 @@ def main():
     t0 = time.perf_counter()
     ell_paths = {}
 
-    def counted(name, fn):
+    def counted(name, fn, into=ell_paths):
         """``fn()`` with the launch counts set to 0 just before it and read
-        into ``ell_paths[name]`` just after it."""
+        into ``into[name]`` just after it."""
         torch.cuda.synchronize()
         bsr_spmv.reset_launches()
         ell_spmv.reset_launches()
         out = fn()
         torch.cuda.synchronize()
-        ell_paths[name] = measure.launch_counts()
+        into[name] = measure.launch_counts()
         return out
+
+    def check_path_operators(phase, tag, o, wind, n_checked):
+        """K3 against its plain version on every ELL operator of the Oseen
+        solver ``o``'s path at ``wind`` (``ell_path_operators``), in the
+        dtype the path applies (first) and in the other one: single
+        products with 1 and 2 right-hand sides, block products with and
+        without y0.  Returns the operators by name."""
+        ops = {op[0]: op for op in ell_path_operators(o, wind)}
+        for name, kind, cols, n_cols, vals0, R0 in ops.values():
+            line = []
+            for dt in sorted((torch.float64, torch.float32),
+                             key=lambda t: t != vals0.dtype):
+                kd = ell_spmv._NAMES[dt]
+                tol = F64_TOL if kd == "f64" else F32_TOL
+                vals = vals0.to(dt).contiguous()
+                R = None if R0 is None else R0.to(dt).contiguous()
+                rnd = lambda *shape: torch.as_tensor(
+                    rng.standard_normal(shape), dtype=dt, device=dev)
+                rels = []
+                if kind == "single":
+                    for x in (rnd(n_cols), rnd(n_cols, 2)):
+                        a, r = rel_err(
+                            ell_spmv.ell_spmv(cols, vals, x, n_cols),
+                            ell_spmv.ell_spmv_plain(cols, vals, x, n_cols))
+                        erec[kd]["max_abs_err"] = max(
+                            erec[kd]["max_abs_err"], a)
+                        rels.append(r)
+                else:
+                    x = rnd(o.d, n_cols)
+                    for yy in (None, rnd(o.d, cols.shape[0])):
+                        a, r = rel_err(
+                            ell_spmv.ell_block_spmv(cols, vals, R, x, n_cols,
+                                                    yy),
+                            ell_spmv.ell_block_spmv_plain(cols, vals, R, x,
+                                                          n_cols, yy))
+                        brec[kd]["max_abs_err"] = max(
+                            brec[kd]["max_abs_err"], a)
+                        rels.append(r)
+                n_checked[kd] += 1
+                line.append(f"{kd} {max(rels)} (tol {tol})")
+                _require(max(rels) <= tol, f"{tag} {name} {kd}: kernel "
+                         f"disagrees with plain ({rels} > {tol})")
+            print(f"[{phase}] {tag}: {name:22s} {kind:6s} ELL "
+                  f"{tuple(vals0.shape)}, applied in "
+                  f"{ell_spmv._NAMES[vals0.dtype]}: max rel err "
+                  + ", ".join(line), flush=True)
+        return ops
 
     errs, mms = {}, {}
     for n_mms in (8, 16):
@@ -1920,46 +2010,8 @@ def main():
                       ("unsteady_channel l1 bdf2", ch.oseen,
                        ch.initial_state()),
                       ("MMS n=16", mms[16][0].oseen, mms[16][1])):
-        for name, kind, cols, n_cols, vals0, R0 in ell_path_operators(
-                o, w[:o.n_u]):
-            # in the dtype the path applies (first) and in the other one
-            line = []
-            for dt in sorted((torch.float64, torch.float32),
-                             key=lambda t: t != vals0.dtype):
-                kd = ell_spmv._NAMES[dt]
-                tol = F64_TOL if kd == "f64" else F32_TOL
-                vals = vals0.to(dt).contiguous()
-                R = None if R0 is None else R0.to(dt).contiguous()
-                rnd = lambda *shape: torch.as_tensor(
-                    rng.standard_normal(shape), dtype=dt, device=dev)
-                rels = []
-                if kind == "single":
-                    for x in (rnd(n_cols), rnd(n_cols, 2)):
-                        a, r = rel_err(
-                            ell_spmv.ell_spmv(cols, vals, x, n_cols),
-                            ell_spmv.ell_spmv_plain(cols, vals, x, n_cols))
-                        erec[kd]["max_abs_err"] = max(
-                            erec[kd]["max_abs_err"], a)
-                        rels.append(r)
-                else:
-                    x = rnd(o.d, n_cols)
-                    for yy in (None, rnd(o.d, cols.shape[0])):
-                        a, r = rel_err(
-                            ell_spmv.ell_block_spmv(cols, vals, R, x, n_cols,
-                                                    yy),
-                            ell_spmv.ell_block_spmv_plain(cols, vals, R, x,
-                                                          n_cols, yy))
-                        brec[kd]["max_abs_err"] = max(
-                            brec[kd]["max_abs_err"], a)
-                        rels.append(r)
-                n_checked[kd] += 1
-                line.append(f"{kd} {max(rels)} (tol {tol})")
-                _require(max(rels) <= tol, f"{tag} {name} {kd}: kernel "
-                         f"disagrees with plain ({rels} > {tol})")
-            print(f"[surface-kernels] {tag}: {name:22s} {kind:6s} ELL "
-                  f"{tuple(vals0.shape)}, applied in "
-                  f"{ell_spmv._NAMES[vals0.dtype]}: max rel err "
-                  + ", ".join(line), flush=True)
+        check_path_operators("surface-kernels", tag, o, w[:o.n_u],
+                             n_checked)
     print(f"[surface-kernels] operators checked: {json.dumps(n_checked)}",
           flush=True)
     del nsp, ch, mms
@@ -1985,13 +2037,29 @@ def main():
     shutil.rmtree(tmp)
     done("surface", t0)
 
+    # ---- 29 (end): the CPU's Anderson run, which went on beside 29-31 -- #
+    t0 = time.perf_counter()
+    cw, ci, cc = job.get()
+    cdiff = rel_diff(g.w, cw)
+    print(f"[anderson] CPU Anderson(3) {ci} ({len(ci)} steps, total "
+          f"{sum(ci)}), state {cdiff} from the card's", flush=True)
+    _require(cc, "Anderson did not converge on the CPU")
+    _require(len(ci) == len(g.linear_iters) and all(
+        abs(a - b) <= 1 for a, b in zip(g.linear_iters, ci)),
+        f"Anderson counts: cuda {g.linear_iters}, cpu {ci}")
+    _require(cdiff <= 1e-6, f"Anderson card and CPU states differ by "
+             f"{cdiff}")
+    del g, cw
+    done("anderson-reference", t0)
+
     # ---- 32-34: the multi-device ring path, 4 rank processes on the card #
     # the pool started after phase 2 and built every run's solvers meanwhile
     t0 = time.perf_counter()
     prep = pool.collect()
     print(f"[spmd] {SPMD_RANKS} rank processes on {card.split(',')[0]} "
           f"(one card, gloo, halos staged through host memory), started "
-          f"with phase 29: solvers of phases 32-36 built in "
+          f"with phase 29: solvers of phases 32-{36 if early else 34} "
+          f"built in "
           f"{max(prep):.3f} s beside phases 29-31, waited "
           f"{time.perf_counter() - t0:.3f} s more", flush=True)
 
@@ -2142,6 +2210,10 @@ def main():
     # K2 and K1 on the owned rows over global columns (and on the multigrid
     # levels, which are whole on every rank) against the plain version
     t0 = time.perf_counter()
+    if not early:
+        prep = pool.run(spmd_demo.rank_prepare, list(gspmd_specs.values()))
+        print(f"[gspmd-kernels] GSPMD solvers built on the ranks in "
+              f"{max(prep):.3f} s", flush=True)
     g_ops, gworst = 0, {}
     for gname, gspec in gspmd_specs.items():
         for kr in pool.run(spmd_demo.rank_gspmd_kernel_check, gspec):
@@ -2270,6 +2342,108 @@ def main():
     pool.close()
     done("gspmd", t0)
 
+    # ---- 37. the three entry points at their JAX demos' surface ------- #
+    # each new branch through the ``main(argv)`` that ``python -m`` runs, in
+    # this process, in a temporary working directory; then K3 against its
+    # plain version on every ELL operator those paths apply, at their final
+    # states, and the times of each path's headline product
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="smoke_entry_")
+    hist_csv = os.path.join(tmp, "hist.csv")
+    cav_vtk = os.path.join(tmp, "cavity.vtk")
+    entries = {
+        "cylinder l1 2D-2 exact loop f64": (cylinder, [
+            "-l", "1", "--unsteady", "--dtype", "float64", "--t-end",
+            f"{ENTRY_CYL_STEPS * ENTRY_CYL_DT:g}", "--hist", hist_csv]),
+        "cylinder l0 2D-1 direct mixed": (cylinder, ["-l", "0", "--ls",
+                                                     "direct"]),
+        "step3d l2 SUPG f32": (step3d, [
+            "-l", "2", "--supg", "--nu", "2e-3", "--dtype", "float32",
+            "--max-steps", "2"]),
+        "cavity l2 continuation Re 400 f32": (cavity, [
+            "-l", "2", "--continuation", "--Re", "400", "--vtk", cav_vtk])}
+    entry_paths, eout = {}, {}
+    for k, (mod, argv) in entries.items():
+        buf, ts = io.StringIO(), time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            eout[k] = counted(k, lambda: mod.main(argv), into=entry_paths)
+        print(f"[entry-points] python -m {mod.__name__} {' '.join(argv)} "
+              f"({time.perf_counter() - ts:.3f} s; launches "
+              f"{json.dumps(entry_paths[k])}):\n" + buf.getvalue().rstrip(),
+              flush=True)
+    ex, ed, e3, ec = (eout[k] for k in entries)
+    r = ex["result"]
+    hist_rows = np.loadtxt(hist_csv, delimiter=",", skiprows=1, ndmin=2)
+    _require(len(r.linear_iters) == ENTRY_CYL_STEPS
+             and max(r.lin_rel) <= 1e-8 and np.isfinite(ex["hist"]).all()
+             and hist_rows.shape == (ENTRY_CYL_STEPS, 4),
+             f"cylinder exact loop: iters {r.linear_iters}, true residuals "
+             f"{r.lin_rel}, history {hist_rows.shape}")
+    r = ed["result"]
+    _require(r.converged and max(r.lin_rel) <= 1e-8,
+             f"cylinder l0 direct mixed: converged {r.converged}, true "
+             f"residuals {r.lin_rel}")
+    # the demo's linear tolerance max(1e-5 / 100, 1e-8); at Re 1000 the
+    # second Picard solve stops at the demo's cap of 120 (as on the CPU at
+    # level 1, where the JAX package's does too), a reduction by > 1e5
+    r = e3["result"]
+    cap3 = e3["solver"].oseen.config.krylov.maxiter
+    _require(len(r.linear_iters) == 2 and r.linear_iters[0] < cap3
+             and all(rel <= 1e-7 or it == cap3
+                     for rel, it in zip(r.lin_rel, r.linear_iters))
+             and max(r.lin_rel) <= 1e-5
+             and r.nonlinear_res[-1] < r.nonlinear_res[0],
+             f"step3d SUPG f32: iters {r.linear_iters} (cap {cap3}), true "
+             f"residuals {r.lin_rel}, |F| {r.nonlinear_res}")
+    _require(len(ec["results"]) == 3 and all(
+        rr.converged for rr in ec["results"]),
+        f"cavity continuation: converged "
+        f"{[rr.converged for rr in ec['results']]}")
+    for k, (kinds, kd) in zip(entries, (
+            (("ell_spmv", "ell_block_spmv"), "f64"),
+            (("ell_spmv",), "f32"), (("ell_spmv", "ell_block_spmv"), "f32"),
+            (("ell_spmv", "ell_block_spmv"), "f32"))):
+        c = entry_paths[k]
+        _require(all(c[kind][kd] > 0 for kind in kinds)
+                 and sum(c["bsr_spmv"].values()) == 0,
+                 f"{k}: launches {c}")
+    with open(cav_vtk) as f:
+        txt = f.read()
+    cmesh = cavity_mesh(2)
+    _require(f"POINTS {cmesh.num_vertices} float" in txt
+             and f"CELLS {cmesh.num_cells} {4 * cmesh.num_cells}" in txt,
+             "the cavity's VTK file does not parse to its mesh")
+    shutil.rmtree(tmp)
+    n37 = {"f64": 0, "f32": 0}
+    headline = {"cylinder l1 2D-2 exact loop f64": "A1 velocity level 1",
+                "cylinder l0 2D-1 direct mixed": "Bt0 (compute)",
+                "step3d l2 SUPG f32": "A1 velocity level 2",
+                "cavity l2 continuation Re 400 f32": "A1 system"}
+    entry_rec = {"ell_spmv": {}, "ell_block_spmv": {}}
+    for k, out in eout.items():
+        o = out["solver"].oseen
+        w = out["result" if "result" in out else "results"]
+        w = (w[-1] if isinstance(w, list) else w).w
+        ops = check_path_operators("entry-points", k, o, w[:o.n_u], n37)
+        name = headline[k]
+        _, kind, _, _, vals, R = ops[name]
+        pat = (o.asm.pat_p2_hi if name == "A1 system" else
+               o.asm.pat_divT if name == "Bt0 (compute)" else
+               o.velocity_hierarchy.asms[-1].pat_p2)
+        dts = [vals.dtype] + ([torch.float64] if k == "step3d l2 SUPG f32"
+                              else [])
+        for dt in dts:
+            t, why = time_ell(kind, pat, vals.to(dt).contiguous(), R, o.d)
+            label = f"{k}: {name} ({ell_spmv._NAMES[dt]})"
+            entry_rec["ell_spmv" if kind == "single"
+                      else "ell_block_spmv"][label] = t
+            print(f"[entry-points] {label}, {kind} product ELL "
+                  f"{tuple(vals.shape)}: {json.dumps(t)}; cuSPARSE CSR "
+                  f"{why or 'taken'}", flush=True)
+    print(f"[entry-points] operators checked: {json.dumps(n37)}", flush=True)
+    del ex, ed, e3, ec, eout
+    done("entry-points", t0)
+
     # ``launches``: counts of the paths' own runs, each read just after a
     # run that began with the counts at 0 (``paths`` splits them).  Each ELL
     # record is its f64 instantiation with the times of the cavity's
@@ -2300,38 +2474,49 @@ def main():
     e31 = {kind: {dt: sum(c[kind][dt] for c in ell_paths.values())
                   for dt in ("f64", "f32")}
            for kind in ("ell_spmv", "ell_block_spmv")}
+    # and of phase 37's entry points
+    e37 = {kind: {dt: sum(c[kind][dt] for c in entry_paths.values())
+                  for dt in ("f64", "f32")}
+           for kind in ("ell_spmv", "ell_block_spmv")}
     kernels_line.append({
         "name": "ell_spmv", "route": "cuda", "source": ELL_SOURCE,
         "replaces": ELL_REPLACES,
         "launches": cavity_launches["ell_f64"] + d1[0] + d2[0] + d14[0]
-        + d18[0] + d21[0] + e31["ell_spmv"]["f64"]
+        + d18[0] + d21[0] + e31["ell_spmv"]["f64"] + e37["ell_spmv"]["f64"]
         + spmd_launch["ell_spmv"] + sum(g_ell["ell_spmv"].values()),
         "paths": {f"cavity l{cavity.LEVEL} continuation":
                   cavity_launches["ell_f64"],
                   cyl_paths[0]: d1[0], cyl_paths[1]: d2[0],
                   hr_path: d14[0], s3_path: d18[0], cf_path: d21[0],
                   **{k: c["ell_spmv"]["f64"] for k, c in ell_paths.items()},
+                  **{k: c["ell_spmv"]["f64"]
+                     for k, c in entry_paths.items()},
                   **{f"ring, {SPMD_RANKS} ranks: {k}": v[0]
                      for k, v in spmd_paths.items()}, **g_ell["ell_spmv"]},
         "dtype": "f64", **erec["f64"],
         "cylinder": crec["f64"]["single"], "step3d": s3rec["single"],
         "custom_uu": cfrec, "ring_a1_block": srec,
+        "entry_points": entry_rec["ell_spmv"],
         "f32": {"launches": cavity_launches["ell_f32"] + d1[2] + d2[2]
-                + d14[2] + d18[2] + d21[2] + e31["ell_spmv"]["f32"],
+                + d14[2] + d18[2] + d21[2] + e31["ell_spmv"]["f32"]
+                + e37["ell_spmv"]["f32"],
+                "paths": {k: c["ell_spmv"]["f32"]
+                          for k, c in {**ell_paths, **entry_paths}.items()
+                          if c["ell_spmv"]["f32"]},
                 **erec["f32"], "cylinder": crec["f32"]["single"]}})
     kernels_line.append({
         "name": "ell_block_spmv", "route": "cuda", "source": ELL_SOURCE,
         "replaces": ELL_REPLACES,
         "launches": cavity_launches["ell_block_f64"] + d1[1] + d2[1]
         + d14[1] + d18[1] + e31["ell_block_spmv"]["f64"]
-        + spmd_launch["ell_block_spmv"]
+        + e37["ell_block_spmv"]["f64"] + spmd_launch["ell_block_spmv"]
         + sum(g_ell["ell_block_spmv"].values()),
         "paths": {f"cavity l{cavity.LEVEL} continuation":
                   cavity_launches["ell_block_f64"],
                   cyl_paths[0]: d1[1], cyl_paths[1]: d2[1], hr_path: d14[1],
                   s3_path: d18[1],
                   **{k: c["ell_block_spmv"]["f64"]
-                     for k, c in ell_paths.items()},
+                     for k, c in {**ell_paths, **entry_paths}.items()},
                   **{f"ring, {SPMD_RANKS} ranks: {k}": v[1]
                      for k, v in spmd_paths.items()},
                   **g_ell["ell_block_spmv"]},
@@ -2339,8 +2524,13 @@ def main():
         "cylinder": {k: v for k, v in crec["f64"].items() if k != "single"},
         "highre": hrec, "gspmd_a1_block": grec,
         "step3d": {k: s3rec[k] for k in ("block", "block_with_R")},
+        "entry_points": entry_rec["ell_block_spmv"],
         "f32": {"launches": cavity_launches["ell_block_f32"] + d1[3] + d2[3]
-                + d14[3] + d18[3] + e31["ell_block_spmv"]["f32"],
+                + d14[3] + d18[3] + e31["ell_block_spmv"]["f32"]
+                + e37["ell_block_spmv"]["f32"],
+                "paths": {k: c["ell_block_spmv"]["f32"]
+                          for k, c in {**ell_paths, **entry_paths}.items()
+                          if c["ell_block_spmv"]["f32"]},
                 **brec["f32"],
                 "cylinder": {k: v for k, v in crec["f32"].items()
                              if k != "single"}}})

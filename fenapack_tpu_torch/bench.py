@@ -79,8 +79,8 @@ def build(level: int, *, device, dtype: str = "float32",
         "dtype": dtype,
         "pcd.variant": VARIANT,
         "krylov.maxiter": MAXITER,
-        "velocity.smooth_iters": 3, "velocity.cycles": 2,
-        "pcd.ap.method": "gmg",
+        "velocity.method": "gmg", "velocity.smooth_iters": 3,
+        "velocity.cycles": 2, "pcd.ap.method": "gmg",
         **(over or {}),
     })
     ap_h = gmg.PressureHierarchy(hier, pdt, device=device,

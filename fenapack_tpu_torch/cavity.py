@@ -1,18 +1,37 @@
-"""The lid-driven cavity slice of the port: its configuration and solver.
+"""The lid-driven cavity slice of the port: its configuration, solver and
+command line, the counterpart of ``demos/demo_cavity.py``.
 
-BASELINE config 2 at the resolution of Ghia, Ghia & Shin (J. Comput. Phys.
-48:387-411, 1982; 129 x 129 points): ``cavity_mesh(0)`` refined four times,
-128 x 128 cells, 148,739 dofs, five multigrid levels.  Newton with PCD-BRM2
-(enclosed flow: no PCD Dirichlet rows, constant pressure nullspace), ELL
-operators in f64, velocity multigrid with 3 Jacobi sweeps and 2 cycles,
-pressure multigrid, FGMRES to 1e-8 with at most 200 iterations, Reynolds
-continuation 100 -> 200 -> 400 -> 500, each stage warm from the last and
-converged to a nonlinear relative residual of 1e-5.
+    python -m fenapack_tpu_torch.cavity -l 2 --Re 500 --nls newton
+    python -m fenapack_tpu_torch.cavity -l 2 --Re 400 --continuation
+
+BASELINE config 2.  The command line is the JAX demo's: enclosed flow on
+``cavity_mesh(level)``, Picard (or ``--nls newton``) with PCD-BRM2 (no PCD
+Dirichlet rows, constant pressure nullspace) or BRM1 (the lid's rows),
+dense LU velocity and Ap subsolves (the configuration's defaults), FGMRES
+to 1e-8; ``--continuation`` doubles Re from 100 up to ``--Re``, each stage
+warm from the last.  ``--dtype`` (default ``float32`` on a CUDA device,
+``float64`` on the CPU, as the JAX demo picks by backend) is the dtype of
+the assembler and of the solver; ``--vtk`` writes the last state.
+
+:func:`build` is the slice at the resolution of Ghia, Ghia & Shin (J.
+Comput. Phys. 48:387-411, 1982; 129 x 129 points): ``cavity_mesh(0)``
+refined four times, 128 x 128 cells, 148,739 dofs, five multigrid levels.
+Newton with PCD-BRM2, ELL operators in f64, velocity multigrid with 3
+Jacobi sweeps and 2 cycles, pressure multigrid, FGMRES to 1e-8 with at
+most 200 iterations, Reynolds continuation 100 -> 200 -> 400 -> 500, each
+stage warm from the last and converged to a nonlinear relative residual
+of 1e-5.
 """
 from __future__ import annotations
 
+import argparse
+
+import torch
+
+from .fem.mesh import cavity_mesh
 from .models import LidDrivenCavity
 from .solvers import gmg
+from .utils.io import save_vtk
 
 LEVEL = 4
 RE = (100.0, 200.0, 400.0, 500.0)
@@ -65,3 +84,66 @@ def ell_operators(nl):
     ops += [("Mp", asm.pat_p1, asm.const.Mp.vals),
             ("Kp", asm.pat_p1, asm.kp_values(wind, surface=True))]
     return ops
+
+
+def reynolds_stages(Re: float, continuation: bool) -> list:
+    """The stages of the command line: ``[Re]``, or with ``continuation``
+    100, 200, 400, ... below ``Re`` and then ``Re``."""
+    if not continuation:
+        return [Re]
+    out, r = [], 100.0
+    while r < Re:
+        out.append(r)
+        r *= 2
+    return out + [Re]
+
+
+def main(argv=None):
+    """Run the command line; returns ``{"solver": ..., "results": [...]}``
+    (the last stage's solver, every stage's result)."""
+    ap = argparse.ArgumentParser(
+        description="lid-driven cavity: enclosed flow, Newton or Picard, "
+                    "BRM1 or BRM2, dense LU subsolves")
+    ap.add_argument("-l", "--level", type=int, default=1)
+    ap.add_argument("--Re", type=float, default=500.0)
+    ap.add_argument("--pcd", choices=["BRM1", "BRM2"], default="BRM2")
+    ap.add_argument("--nls", choices=["picard", "newton"], default="picard")
+    ap.add_argument("--rtol", type=float, default=1e-5)
+    ap.add_argument("--damping", type=float, default=1.0)
+    ap.add_argument("--continuation", action="store_true",
+                    help="ramp Re in 2x steps from 100 (helps Newton at "
+                         "high Re)")
+    ap.add_argument("--dtype", choices=["float64", "float32"], default=None,
+                    help="default: float32 on a CUDA device, float64 on "
+                         "the CPU")
+    ap.add_argument("--vtk", default=None, help="write the last state")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    dtype = args.dtype or ("float64" if torch.device(args.device).type
+                           == "cpu" else "float32")
+    if args.device.startswith("cuda"):
+        print(f"device: {torch.cuda.get_device_name(0)}", flush=True)
+    mesh = cavity_mesh(args.level)
+    w, results = None, []
+    for Re in reynolds_stages(args.Re, args.continuation):
+        p = LidDrivenCavity(level=args.level, nu=1.0 / Re, dtype=dtype,
+                            device=args.device)
+        nl = p.solver(args.pcd, linearization=args.nls,
+                      asm=p.assembler(mesh))
+        print(f"\n=== cavity l={args.level} Re={Re:.0f} "
+              f"{args.nls}+PCD-{args.pcd} (dofs {nl.n}, {dtype}) ===",
+              flush=True)
+        r = nl.solve(w, rtol=args.rtol, damping=args.damping)
+        w = r.w
+        results.append(r)
+        print(f"converged: {r.converged}  steps: {len(r.linear_iters)}  "
+              f"iters: {r.linear_iters}")
+        print(f"wall: {r.wall_time:.2f} s", flush=True)
+    if args.vtk:
+        save_vtk(args.vtk, nl.asm, w)
+        print(f"wrote {args.vtk}")
+    return {"solver": nl, "results": results}
+
+
+if __name__ == "__main__":
+    main()

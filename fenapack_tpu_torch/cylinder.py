@@ -1,30 +1,45 @@
 """The DFG cylinder slice of the port: its configuration, functionals and
-command line.
+command line, the counterpart of ``demos/demo_cylinder.py``.
 
     python -m fenapack_tpu_torch.cylinder -l 2
-    python -m fenapack_tpu_torch.cylinder --unsteady -l 2 --dt 0.00625 \\
-        --t-end 8
+    python -m fenapack_tpu_torch.cylinder --unsteady -l 2 --t-end 8
 
 BASELINE config 3, the Schafer-Turek "flow around a cylinder" benchmark
 (Schafer & Turek 1996): channel [0, 2.2] x [0, 0.41], cylinder of diameter
 0.1 at (0.2, 0.2), nu = 1e-3, parabolic inflow, Taylor-Hood P2/P1 on the
 snapped graded mesh ``cylinder_channel_mesh(0)`` refined ``level`` times
 (level 2: 328,004 dofs).  PCD-BRM2 with the outflow pressure rows, ELL
-operators in f64, velocity multigrid with 3 minimal-residual smoothing
-steps and 2 cycles over the three meshes and the P1 bottom level, pressure
-multigrid, FGMRES to 1e-8.
+operators, FGMRES to 1e-8.  ``--ls iterative`` (the default): velocity
+multigrid with 3 minimal-residual smoothing steps and 2 cycles over the
+meshes and the P1 bottom level, pressure multigrid; ``--ls direct``: dense
+LU velocity and Ap subsolves.
 
-  * DFG 2D-1: Re = 20 (mean inflow 0.2), steady, Newton to a nonlinear
-    relative residual of 1e-6.  Published: c_D in [5.5700, 5.5900], c_L in
-    [0.0104, 0.0110], dP in [0.1172, 0.1176].
-  * DFG 2D-2: Re = 100 (mean inflow 1.0), semi-implicit BDF2 from the
-    impulsive start, drag, lift and the pressure difference evaluated on
-    the device after every step.  Published: c_Dmax in [3.2200, 3.2400],
-    c_Lmax in [0.9900, 1.0100], St in [0.2950, 0.3050].
+``--dtype`` (default ``mixed`` on a CUDA device, ``float64`` on the CPU,
+as the JAX demo picks by backend): ``mixed`` is the f64 assembler with the
+preconditioner's constants and hierarchies in f32 and high-precision
+solves (2D-1 ``solve_fused``, 2D-2 the semi-implicit stepper);
+``float64`` and ``float32`` run assembler and solver in that dtype (2D-1
+``solve`` with ``--nls``, 2D-2 the exact loop).
+
+  * DFG 2D-1: Re = 20 (mean inflow 0.2), steady, Newton (or ``--nls
+    picard``) to a nonlinear relative residual of 1e-6.  Published: c_D in
+    [5.5700, 5.5900], c_L in [0.0104, 0.0110], dP in [0.1172, 0.1176].
+  * DFG 2D-2: Re = 100 (mean inflow 1.0), BDF2 from the impulsive start,
+    time step 0.0125.  ``mixed``: one linearized solve per step
+    (semi-implicit), drag, lift and the pressure difference evaluated on
+    the device after every step.  ``float64`` / ``float32``: the exact
+    loop, three Picard iterations per step, the functionals recomputed on
+    the host after every step with the backward difference ``(u -
+    u_prev) / dt`` as du/dt (none at the first step), as the JAX demo
+    records them.  Published: c_Dmax in [3.2200, 3.2400], c_Lmax in
+    [0.9900, 1.0100], St in [0.2950, 0.3050].  The ``(t, c_D, c_L, dP)``
+    rows stream to ``--hist``.
 
 Drag and lift are the boundary reaction on the cylinder times
 ``2 / (Ubar^2 D)``; dP is the pressure at (0.15, 0.2) less that at
-(0.25, 0.2).
+(0.25, 0.2).  Not ported from the JAX demo: ``--chunk``, ``--ckpt``,
+``--no-resume``, ``--warm-from``, ``--block``, ``--split-programs``
+(device-program sizing and restarts for the TPU).
 """
 from __future__ import annotations
 
@@ -49,28 +64,52 @@ RTOL = 1e-6                      # nonlinear relative residual of 2D-1
 
 
 def default_dt(level: int) -> float:
-    """The time step of 2D-2, halved with the mesh: 0.00625 at level 2."""
+    """The time step of :func:`build`'s 2D-2 stepper when none is given,
+    halved with the mesh: 0.00625 at level 2 (the command line's default
+    is the JAX demo's 0.0125)."""
     return 0.025 / 2 ** level
 
 
+def default_dtype(device) -> str:
+    """``mixed`` on a CUDA device, ``float64`` on the CPU (the JAX demo's
+    choice by backend)."""
+    return "float64" if torch.device(device).type == "cpu" else "mixed"
+
+
 def build(level: int, re: int, *, device, unsteady: bool = False,
-          dt: float = None, hier=None, recycle: int = 0):
+          dt: float = None, hier=None, recycle: int = 0,
+          nls: str = "newton", ls: str = "iterative",
+          dtype: str = "float64", maxiter: int = None):
     """The slice's solver through the model entry point at ``level`` and
-    benchmark Reynolds number ``re`` (20 or 100): the Newton solver of
-    2D-1, or with ``unsteady`` the BDF2 stepper of 2D-2 with time step
-    ``dt``.  ``hier`` (the hierarchy of the same level) is reused when
-    given; ``recycle`` is the GCRO-DR space of ``solve_fused`` (0:
-    none)."""
+    benchmark Reynolds number ``re`` (20 or 100): the steady solver of
+    2D-1 with linearization ``nls``, or with ``unsteady`` the BDF2 stepper
+    of 2D-2 (Picard) with time step ``dt``.  ``ls``: ``iterative`` (both
+    multigrids) or ``direct`` (dense LU subsolves, no hierarchies).
+    ``dtype``: ``float64`` or ``float32`` (assembler and solver), or
+    ``mixed`` (f64 assembler, f32 constants, hierarchies and
+    preconditioner).  ``hier`` (the hierarchy of the same level) is reused
+    when given; ``recycle`` is the GCRO-DR space of ``solve_fused`` (0:
+    none); ``maxiter`` caps FGMRES (default the configuration's 100)."""
     p = CylinderChannel2D(level=level, nu=NU, u_mean=UBAR[re],
-                          device=str(device))
-    asm = p.assembler(hier.fine) if hier is not None else None
-    cfg = {**CFG, "krylov.recycle": recycle}
+                          dtype="float32" if dtype == "float32"
+                          else "float64", device=str(device))
+    iterative = ls == "iterative"
+    if hier is None:
+        hier = p.mesh(gmg_levels=level)
+    asm = (p.assembler(hier.fine, block_dtype=torch.float32)
+           if dtype == "mixed" else p.assembler(hier.fine))
+    cfg = {"krylov.recycle": recycle, **(CFG if iterative else {})}
+    if dtype == "mixed":
+        cfg["dtype"] = "float32"
+    if maxiter is not None:
+        cfg["krylov.maxiter"] = maxiter
+    kw = dict(gmg_subsolves=iterative, asm=asm,
+              hier=hier if iterative else None, **cfg)
     if unsteady:
-        return p.solver("BRM2", linearization="picard", gmg_subsolves=True,
+        return p.solver("BRM2", linearization="picard", scheme="bdf2",
                         unsteady=default_dt(level) if dt is None else dt,
-                        scheme="bdf2", asm=asm, hier=hier, **cfg)
-    return p.solver("BRM2", linearization="newton", gmg_subsolves=True,
-                    asm=asm, hier=hier, **cfg)
+                        **kw)
+    return p.solver("BRM2", linearization=nls, **kw)
 
 
 def coeff(re: int) -> float:
@@ -163,56 +202,121 @@ def ell_operators(nl):
     return ops
 
 
-def main(argv=None):
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description="DFG 2D-1 (steady, Re 20) or 2D-2 (--unsteady, Re 100) "
                     "on the Schafer-Turek cylinder")
     ap.add_argument("-l", "--level", type=int, default=1,
                     help="refinements of the level-0 cylinder mesh")
-    ap.add_argument("--rtol", type=float, default=RTOL)
+    ap.add_argument("--nls", choices=["picard", "newton"], default="newton",
+                    help="linearization of 2D-1 (2D-2 steps by Picard)")
+    ap.add_argument("--ls", choices=["direct", "iterative"],
+                    default="iterative",
+                    help="dense LU subsolves, or both multigrids")
+    ap.add_argument("--dtype", choices=["float64", "mixed", "float32"],
+                    default=None,
+                    help="default: mixed on a CUDA device, float64 on the "
+                         "CPU")
+    ap.add_argument("--rtol", type=float, default=RTOL,
+                    help="nonlinear relative tolerance of 2D-1")
     ap.add_argument("--unsteady", action="store_true",
                     help="DFG 2D-2: Re = 100 vortex shedding and Strouhal")
     ap.add_argument("--t-end", type=float, default=8.0)
-    ap.add_argument("--dt", type=float, default=None,
-                    help="time step of 2D-2 (default: 0.025 / 2^level)")
+    ap.add_argument("--dt", type=float, default=0.0125)
+    ap.add_argument("--hist", default="cylinder_2d2_hist.csv",
+                    help="2D-2: the (t, cD, cL, dP) history, one CSV row "
+                         "per step")
+    ap.add_argument("--maxiter", type=int, default=None,
+                    help="FGMRES iteration cap (default 100)")
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args(argv)
-    re = 100 if args.unsteady else 20
-    if args.device == "cuda":
-        print(f"device: {torch.cuda.get_device_name(0)}", flush=True)
+    return ap
 
-    if not args.unsteady:
-        nl = build(args.level, re, device=args.device)
-        print(f"cylinder channel  l={args.level}  Re={re}  nu={NU:g}  "
-              f"dofs={nl.n}", flush=True)
-        r = nl.solve(rtol=args.rtol)
-        print(f"converged: {r.converged}  iters/step: {r.linear_iters}  "
-              f"solve {r.wall_time:.3f} s")
-        cd, cl, dp = coefficients(nl.asm, r.w, re)
-        print(f"\nDFG 2D-1:  c_D = {cd:.4f}   (ref 5.5700-5.5900)")
-        print(f"           c_L = {cl:.4f}   (ref 0.0104-0.0110)")
-        print(f"           dP  = {dp:.4f}   (ref 0.1172-0.1176)")
-        return
 
-    dt = default_dt(args.level) if args.dt is None else args.dt
-    us = build(args.level, re, device=args.device, unsteady=True, dt=dt)
-    print(f"cylinder channel  l={args.level}  Re={re}  nu={NU:g}  "
-          f"dofs={us.n}  dt={dt:g}  steps={int(round(args.t_end / dt))}",
-          flush=True)
-    r = us.solve_fused(args.t_end, functional=functional(us.asm, dt))
-    hist = history(r.functionals, dt, re)
-    print("t,cD,cL,dP,iters")
-    for row, it in list(zip(hist, r.linear_iters))[79::80]:
-        print(",".join(f"{v:.10g}" for v in row) + f",{it}")
-    s = summarize(hist, re)
+def _print_2d2(hist: np.ndarray, r) -> dict:
+    """Print the 2D-2 summary of the history and the run ``r``; returns
+    :func:`summarize`'s dict."""
     n = len(r.linear_iters)
+    s = summarize(hist)
     print(f"\n{n} steps in {r.wall_time:.3f} s ({r.wall_time / n:.4f} s per "
           f"step), iters/step mean {np.mean(r.linear_iters):.1f} max "
           f"{max(r.linear_iters)}, max linear true rel res {max(r.lin_rel)}")
     st = "not established" if s["St"] is None else f"{s['St']:.4f}"
     print(f"DFG 2D-2:  St     = {st}   (ref 0.2950-0.3050)")
     print(f"           c_Dmax = {s['c_Dmax']:.4f}   (ref 3.2200-3.2400)")
-    print(f"           c_Lmax = {s['c_Lmax']:.4f}   (ref 0.9900-1.0100)")
+    print(f"           c_Lmax = {s['c_Lmax']:.4f}   (ref 0.9900-1.0100)",
+          flush=True)
+    return s
+
+
+def main(argv=None):
+    """Run the command line; returns a dict: ``solver`` and ``result``,
+    and ``coefficients`` (c_D, c_L, dP) of 2D-1 or ``hist`` (the ``(t,
+    c_D, c_L, dP)`` rows) and ``summary`` of 2D-2."""
+    args = parser().parse_args(argv)
+    re = 100 if args.unsteady else 20
+    dtype = args.dtype or default_dtype(args.device)
+    if args.device.startswith("cuda"):
+        print(f"device: {torch.cuda.get_device_name(0)}", flush=True)
+    kw = dict(device=args.device, nls=args.nls, ls=args.ls, dtype=dtype,
+              maxiter=args.maxiter)
+
+    if not args.unsteady:
+        nl = build(args.level, re, **kw)
+        print(f"cylinder channel  l={args.level}  Re={re}  nu={NU:g}  "
+              f"dofs={nl.n}  {args.nls}  {args.ls}  {dtype}", flush=True)
+        r = (nl.solve_fused(rtol=args.rtol) if dtype == "mixed"
+             else nl.solve(rtol=args.rtol))
+        print(f"converged: {r.converged}  iters/step: {r.linear_iters}  "
+              f"solve {r.wall_time:.3f} s")
+        cd, cl, dp = coefficients(nl.asm, r.w, re)
+        print(f"\nDFG 2D-1:  c_D = {cd:.4f}   (ref 5.5700-5.5900)")
+        print(f"           c_L = {cl:.4f}   (ref 0.0104-0.0110)")
+        print(f"           dP  = {dp:.4f}   (ref 0.1172-0.1176)")
+        return {"solver": nl, "result": r, "coefficients": (cd, cl, dp)}
+
+    dt = args.dt
+    us = build(args.level, re, unsteady=True, dt=dt, **kw)
+    n_steps = int(round(args.t_end / dt))
+    print(f"cylinder channel  l={args.level}  Re={re}  nu={NU:g}  "
+          f"dofs={us.n}  dt={dt:g}  steps={n_steps}  {args.ls}  {dtype}",
+          flush=True)
+
+    def write(f, row):
+        f.write(",".join(f"{v:.10g}" for v in row) + "\n")
+
+    with open(args.hist, "w") as f:
+        f.write("t,cD,cL,dP\n")
+        if dtype == "mixed":
+            # semi-implicit BDF2, the functionals on the device
+            r = us.solve_fused(args.t_end, functional=functional(us.asm, dt))
+            hist = history(r.functionals, dt, re)
+            for row in hist:
+                write(f, row)
+            print("t,cD,cL,dP,iters")
+            for row, it in list(zip(hist, r.linear_iters))[79::80]:
+                print(",".join(f"{v:.10g}" for v in row) + f",{it}")
+            s = _print_2d2(hist, r)
+            return {"solver": us, "result": r, "hist": hist, "summary": s}
+
+        # the exact loop: three Picard iterations per BDF2 step, the
+        # functionals recorded on the host after every step
+        rows, prev = [], {"u": None}
+
+        def record(k, t, w):
+            u = w[:us.n_u]
+            du_dt = None if prev["u"] is None else (u - prev["u"]) / dt
+            prev["u"] = u
+            rows.append((t, *coefficients(us.asm, w, re, du_dt=du_dt)))
+            write(f, rows[-1])
+            f.flush()
+            if (k + 1) % 80 == 0:
+                print(f"t={t:7.3f}  cD={rows[-1][1]:.4f}  "
+                      f"cL={rows[-1][2]:+.4f}", flush=True)
+
+        r = us.solve(args.t_end, picard_iters=3, callback=record)
+    hist = np.array(rows)
+    s = _print_2d2(hist, r)
+    return {"solver": us, "result": r, "hist": hist, "summary": s}
 
 
 if __name__ == "__main__":

@@ -118,10 +118,14 @@ class _ProblemBase:
         the second-order stepper).  ``gmg_subsolves`` equips velocity and Ap
         multigrid hierarchies; without it both subsolves are dense LU.  To
         reuse a pre-built assembler on the multigrid path, pass the
-        hierarchy it was built on too (``asm.mesh is hier.fine``)."""
+        hierarchy it was built on too (``asm.mesh is hier.fine``).  The
+        hierarchies take the solver's compute dtype (``dtype`` among the
+        overrides: an f32 preconditioner around an f64 assembler built
+        with ``block_dtype``)."""
         method = "gmg" if gmg_subsolves else "lu"
         over = {"pcd.variant": pcd, "dtype": self.dtype,
-                "velocity.method": method, "pcd.ap.method": method}
+                "velocity.method": method, "pcd.ap.method": method,
+                **config_overrides}
         marker = self.pcd_marker_for(pcd)
         ap_h = v_h = None
         if gmg_subsolves:
@@ -132,7 +136,7 @@ class _ProblemBase:
                         " it was built on: pass hier= as well")
                 hier = self.mesh(gmg_levels=self.level)
             asm = self.assembler(hier.fine) if asm is None else asm
-            dt = _DTYPES[self.dtype]
+            dt = _DTYPES[over["dtype"]]
             ap_h = gmg.PressureHierarchy(
                 hier, dt, device=self.device,
                 pcd_markers=[marker] if marker else (), fine_asm=asm)
@@ -142,7 +146,6 @@ class _ProblemBase:
                 fine_asm=asm)
         elif asm is None:
             asm = self.assembler()
-        over.update(config_overrides)
         cfg = overrides(SolverConfig(), over)
         common = dict(pcd_marker=marker, linearization=linearization,
                       enclosed=self.enclosed(), ap_hierarchy=ap_h,

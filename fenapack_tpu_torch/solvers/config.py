@@ -1,10 +1,12 @@
 """Nested solver configuration with dotted-key overrides.
 
 The subset of ``fenapack_tpu/solvers/config.py`` (plain dataclasses) that
-the port reads: every field here changes what a solve does.  The JAX
-package's TPU workarounds (``split_assembly``, ``ds_basis``,
-``df32_matvec``, the pressure multigrid's ``smoother``) are not carried, so
-overriding them raises.  :func:`env_overrides` applies ``FENAPACK_CFG``.
+the port reads: every field here changes what a solve does, and every
+default is the JAX package's except ``krylov.hi_krylov`` (True here: FP64
+is native on the card).  The JAX package's TPU workarounds
+(``split_assembly``, ``ds_basis``, ``df32_matvec``, the pressure subsolves'
+``smoother``) are not carried, so overriding them raises.
+:func:`env_overrides` applies ``FENAPACK_CFG``.
 """
 from __future__ import annotations
 
@@ -35,14 +37,14 @@ class VelocityConfig(MultigridConfig):
                       (default (0.1, 2.0))
       ``minres``    — ``iters // 4`` rounds of 4 minimal-residual steps
     The last three are factorization-free, as the JAX package's 3D tests
-    and demo use them.
+    and demo use them.  The default is ``lu``, as in the JAX package.
 
     smoothers of the multigrid levels:
       ``jacobi`` — damped Jacobi
       ``minres`` — minimal residual over the Jacobi-preconditioned Krylov
                    directions (nonsymmetric, convection-dominated levels)
     """
-    method: str = "gmg"
+    method: str = "lu"
     smoother: str = "jacobi"
     iters: int = 10
     bounds: Optional[Tuple[float, float]] = None
@@ -58,7 +60,7 @@ class SubsolveConfig(MultigridConfig):
       ``lu``        — exact dense inverse (validation scale)
       ``lumped``    — the inverse of the row sums (the mass Mp)
     """
-    method: str = "gmg"
+    method: str = "lu"
     iters: int = 10                      # chebyshev iterations
     bounds: Optional[Tuple[float, float]] = None   # spectral bounds override
 
@@ -71,6 +73,9 @@ class KrylovConfig:
     :meth:`OseenSolver.make_ir_solve`, which takes its own overall
     ``rtol``."""
     rtol: float = 1e-8
+    # the absolute floor of the stop of OseenSolver.solve (and solve_batch)
+    # and of the custom-form solve: |r| <= max(rtol |b|, atol)
+    atol: float = 0.0
     maxiter: int = 100
     # the high-precision solve of OseenSolver.make_ir_solve and solve_ir:
     # True runs ONE f64 FGMRES round (f64 basis, Givens and residual
@@ -121,7 +126,7 @@ class KrylovConfig:
 @dataclasses.dataclass(frozen=True)
 class PCDConfig:
     variant: str = "BRM2"                # BRM1 | BRM2
-    ap: SubsolveConfig = SubsolveConfig(method="gmg")
+    ap: SubsolveConfig = SubsolveConfig(method="lu")
     # Jacobi-scaled P1 mass spectrum is mesh-uniform (Wathen's bounds):
     # [1/2, 2] on triangles.  4 iterations at these bounds (min-max residual
     # 4.3e-2) reproduce-or-beat oracle outer counts in the JAX package

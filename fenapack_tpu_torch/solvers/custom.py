@@ -36,7 +36,7 @@ import torch
 from ..fem import forms as F
 from ..fem.dofmap import DirichletBC, TaylorHood, merge_bcs
 from ..ops import subsolve
-from .config import SolverConfig, overrides
+from .config import SolverConfig
 from .fieldsplit import make_fieldsplit_upper
 from .krylov import FGMRESResult, fgmres
 from .pcd import make_pcd_apply
@@ -44,10 +44,8 @@ from .pcd import make_pcd_apply
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 # the JAX package's defaults for custom-form problems: dense velocity and
-# Ap inverses (this port's SolverConfig defaults to multigrid, which needs
-# the hierarchies of the built-in path)
-DEFAULT_CONFIG = overrides(SolverConfig(), {"velocity.method": "lu",
-                                            "pcd.ap.method": "lu"})
+# Ap inverses, as SolverConfig's
+DEFAULT_CONFIG = SolverConfig()
 
 
 def _sync(device: torch.device):
@@ -387,7 +385,7 @@ class PCDKrylovSolver:
         cfg = self.config.krylov
         matvec, pc = self.system(x_lin)
         return fgmres(matvec, pc, b.to(self.dtype), maxiter=cfg.maxiter,
-                      rtol=cfg.rtol), matvec
+                      rtol=cfg.rtol, atol=cfg.atol), matvec
 
 
 class PCDNewtonSolver:

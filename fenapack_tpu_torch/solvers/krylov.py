@@ -100,32 +100,35 @@ def refresh_recycle(matvec: Callable, rec: RecycleSpace) -> RecycleSpace:
 
 
 def fgmres(matvec: Callable, pc: Callable, b: torch.Tensor, *,
-           maxiter: int = 100, rtol: float = 1e-8,
+           maxiter: int = 100, rtol: float = 1e-8, atol: float = 0.0,
            reorth_eta: float = 0.0, dist=LOCAL) -> FGMRESResult:
-    """Solve ``A x = b`` with right preconditioner ``pc`` (flexible).
+    """Solve ``A x = b`` with right preconditioner ``pc`` (flexible) to
+    ``max(rtol |b|, atol)``.
     ``reorth_eta = 0`` runs the second Gram-Schmidt pass unconditionally.
     ``dist`` (:mod:`.dist`) lays the Krylov vectors out over ranks: each
     rank holds its rows of ``b``, of the basis and of ``x``; the
     Gram-Schmidt projections and norms are reduced over the ranks (three
     reductions per iteration), so every rank reads the same Hessenberg
     column and stops at the same iteration."""
-    return _fgmres(matvec, pc, b, None, maxiter, rtol, reorth_eta, dist)[0]
+    return _fgmres(matvec, pc, b, None, maxiter, rtol, reorth_eta, dist,
+                   atol)[0]
 
 
 def fgmres_dr(matvec: Callable, pc: Callable, b: torch.Tensor,
               rec: RecycleSpace, *, maxiter: int = 100, rtol: float = 1e-8,
-              reorth_eta: float = 0.0):
+              atol: float = 0.0, reorth_eta: float = 0.0):
     """Deflated-recycling FGMRES (GCRO-DR): :func:`fgmres` with the Krylov
     space augmented by ``rec``, whose ``C = A U`` must hold for this
     operator (:func:`refresh_recycle` after the operator changed).  Returns
     ``(result, rec_new)``: ``rec_new`` holds the directions of the smallest
     singular values of the augmented space, the ones the next solve
     converges slowest on."""
-    return _fgmres(matvec, pc, b, rec, maxiter, rtol, reorth_eta)
+    return _fgmres(matvec, pc, b, rec, maxiter, rtol, reorth_eta,
+                   atol=atol)
 
 
 def _fgmres(matvec, pc, b, rec: Optional[RecycleSpace], maxiter: int,
-            rtol: float, reorth_eta: float, dist=LOCAL):
+            rtol: float, reorth_eta: float, dist=LOCAL, atol: float = 0.0):
     n, m = b.shape[0], maxiter
     dtype, dev = b.dtype, b.device
     npdt = _NP[dtype]
@@ -148,7 +151,7 @@ def _fgmres(matvec, pc, b, rec: Optional[RecycleSpace], maxiter: int,
         Bm = np.zeros((m, kr), dtype=npdt)          # C w per iteration
         Hm = np.zeros((m + 1, m), dtype=npdt)       # pre-rotation columns
     syncs = 1
-    tol = rtol * bnorm
+    tol = max(rtol * bnorm, atol)
 
     V = torch.zeros((m + 1, n), dtype=dtype, device=dev)
     V[0] = r0 / (beta if beta > 0 else 1.0)

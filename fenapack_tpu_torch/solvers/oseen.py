@@ -420,8 +420,10 @@ class OseenSolver:
         A1h, Rh = self._operator_values_raw(wind.to(self.asm.dtype), hi=True)
         return self._matvec_factory(A1h, Rh, hi=True)
 
-    def _krylov(self, matvec, pc, b: torch.Tensor, rtol: float, rec=None):
-        """One FGMRES solve of ``b`` in b's dtype to ``rtol`` around the
+    def _krylov(self, matvec, pc, b: torch.Tensor, rtol: float, rec=None,
+                atol: float = 0.0):
+        """One FGMRES solve of ``b`` in b's dtype to ``max(rtol |b|,
+        atol)`` around the
         compute-dtype ``pc`` (cast to the compute dtype and back around each
         apply when b's dtype differs); with a recycle space ``rec``
         GCRO-DR (the caller re-binds ``rec`` to ``matvec``).  Every solve of
@@ -429,7 +431,8 @@ class OseenSolver:
         kcfg = self.config.krylov
         if b.dtype != self.dtype:
             pc = (lambda p: lambda r: p(r.to(self.dtype)).to(b.dtype))(pc)
-        kw = dict(maxiter=kcfg.maxiter, rtol=rtol, reorth_eta=kcfg.reorth_eta)
+        kw = dict(maxiter=kcfg.maxiter, rtol=rtol, atol=atol,
+                  reorth_eta=kcfg.reorth_eta)
         if rec is None:
             return fgmres(matvec, pc, b, dist=self.dist, **kw), None
         return fgmres_dr(matvec, pc, b, rec, **kw)
@@ -437,12 +440,13 @@ class OseenSolver:
     # -------------------------------------------------------------- #
     def solve(self, wind: torch.Tensor, b: torch.Tensor):
         """Solve the Oseen system linearized at ``wind`` with right-hand
-        side ``b``: FGMRES in the compute dtype to ``krylov.rtol * |b|``, at
-        most ``krylov.maxiter`` iterations.  Returns the
+        side ``b``: FGMRES in the compute dtype to ``max(krylov.rtol |b|,
+        krylov.atol)``, at most ``krylov.maxiter`` iterations.  Returns the
         :class:`FGMRESResult` and the system matvec it solved with."""
         kcfg = self.config.krylov
         matvec, pc = self._compute_pipeline(wind)
-        res, _ = self._krylov(matvec, pc, b.to(self.dtype), kcfg.rtol)
+        res, _ = self._krylov(matvec, pc, b.to(self.dtype), kcfg.rtol,
+                              atol=kcfg.atol)
         return res, matvec
 
     def solve_batch(self, wind: torch.Tensor, B: torch.Tensor):
@@ -458,7 +462,7 @@ class OseenSolver:
         # i * n elements, where vectorized device loads (and with them the
         # order of a reduction) may differ from a tensor of its own
         out = [self._krylov(matvec, pc, b.to(self.dtype).clone(),
-                            kcfg.rtol)[0] for b in B]
+                            kcfg.rtol, atol=kcfg.atol)[0] for b in B]
         return (torch.stack([r.x for r in out]),
                 np.array([r.iters for r in out]),
                 np.array([r.converged for r in out]))

@@ -56,22 +56,27 @@ class UnsteadyResult:
     step_res: List[float]          # nonlinear residual norm of each step
     wall_time: float
     history: Optional[List[np.ndarray]] = None
-    # solve_fused only: the true relative residual of each step's linear
-    # solve, and the per-step functional values (n_steps, k) on the
-    # state's device when a functional was given
+    # the true relative residual of each step's linear solve (solve: the
+    # largest of its Picard solves), and (solve_fused only) the per-step
+    # functional values (n_steps, k) on the state's device when a
+    # functional was given
     lin_rel: Optional[List[float]] = None
     functionals: Optional[torch.Tensor] = None
 
 
 class UnsteadySolver:
-    """theta-scheme / BDF2 stepper around :class:`OseenSolver`."""
+    """theta-scheme / BDF2 stepper around :class:`OseenSolver`.
+    ``pcd_marker`` is required, as there: the facet marker of the PCD
+    Dirichlet rows, None for none (the JAX package turns None into the
+    outflow for BRM2 and the inflow for BRM1)."""
 
     def __init__(self, asm, bcs: Sequence[DirichletBC],
                  config: SolverConfig = SolverConfig(), *,
-                 dt: float, theta: float = 1.0, scheme: str = "theta",
+                 dt: float, pcd_marker: Optional[int],
+                 theta: float = 1.0, scheme: str = "theta",
                  linearization: str = "picard", enclosed: bool = False,
-                 pcd_marker: Optional[int] = None, ap_hierarchy=None,
-                 velocity_hierarchy=None, bc_fn: Optional[Callable] = None):
+                 ap_hierarchy=None, velocity_hierarchy=None,
+                 bc_fn: Optional[Callable] = None):
         if scheme not in ("theta", "bdf2"):
             raise ValueError(f"unknown time scheme {scheme!r}")
         # Time-dependent Dirichlet data g(t): ``bc_fn(t)`` returns a
@@ -196,13 +201,15 @@ class UnsteadySolver:
     # -------------------------------------------------------------- #
     def step(self, w: torch.Tensor, *, picard_iters: int = 1,
              rtol: float = 1e-6, u_prev: Optional[torch.Tensor] = None,
-             bc_vals=None):
+             bc_vals=None, lin_rel: Optional[list] = None):
         """Advance one time step; returns ``(w_new, linear iterations,
         last nonlinear residual norm)``.  ``u_prev`` (BDF2 only) is the
         velocity of two steps ago; None selects the startup step.
         ``bc_vals`` is the Dirichlet data at the new time level: written
         into the state before the residual, so the mass term carries the
-        exact Dirichlet-lift contribution of a moving boundary."""
+        exact Dirichlet-lift contribution of a moving boundary.  A list
+        ``lin_rel`` receives the true relative residual of each linear
+        solve."""
         u_old = w[:self.n_u]
         aux = self._step_aux(u_old, u_prev)
         if bc_vals is not None:
@@ -213,8 +220,11 @@ class UnsteadySolver:
             rn = float(torch.linalg.norm(F))
             if rn <= rtol:
                 break
-            res, _ = self.oseen.solve(w[:self.n_u], -F)
+            res, matvec = self.oseen.solve(w[:self.n_u], -F)
             total += int(res.iters)
+            if lin_rel is not None:
+                lin_rel.append(float(torch.linalg.norm(-F - matvec(res.x)))
+                               / max(res.bnorm, 1e-300))
             w = w + res.x
         return w, total, rn
 
@@ -227,20 +237,24 @@ class UnsteadySolver:
         t = -dt; with it the first step runs full BDF2 instead of the
         implicit-Euler startup, whose effective step 2 dt / 3 leaves an
         O(dt) error in the whole trajectory (restores the history when
-        resuming from a checkpoint)."""
+        resuming from a checkpoint).  ``lin_rel`` of the result holds each
+        step's largest true relative residual of its linear solves."""
         t0 = time.perf_counter()
         dtc = self.oseen.dtype
         w = self.initial_state() if w0 is None else w0.to(dtc)
         t = 0.0
-        times, iters, resid = [], [], []
+        times, iters, resid, lin_rel = [], [], [], []
         hist = [] if keep_history else None
         u_prev = None if u_prev0 is None else u_prev0.to(dtc)
         for k in range(int(round(t_end / self.dt))):
             u_old = w[:self.n_u]
             bc_vals = (self._bc_values_at(t + self.dt)
                        if self.bc_fn is not None else None)
+            rels = []
             w, it, rn = self.step(w, picard_iters=picard_iters,
-                                  u_prev=u_prev, bc_vals=bc_vals)
+                                  u_prev=u_prev, bc_vals=bc_vals,
+                                  lin_rel=rels)
+            lin_rel.append(max(rels, default=0.0))
             u_prev = u_old                   # BDF2 history (theta: unread)
             t += self.dt
             times.append(t)
@@ -253,7 +267,7 @@ class UnsteadySolver:
         return UnsteadyResult(w=w, times=times, linear_iters=iters,
                               step_res=resid,
                               wall_time=time.perf_counter() - t0,
-                              history=hist)
+                              history=hist, lin_rel=lin_rel)
 
     # -------------------------------------------------------------- #
     # the semi-implicit time loop on high-precision solves
