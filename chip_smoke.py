@@ -251,9 +251,6 @@ processes), in phases that each print one or more lines:
                headline product (the step3d one in f32 and in f64) beside
                cuSPARSE CSR and the bound.
 
-``--gspmd-prebuild early`` builds the GSPMD solvers beside phases 29-31
-instead of at the start of phase 35 (the A/B of phase 33's time).
-
 The card-against-CPU phases (5, 8, 12, 16, 19, 24, 29) hand their CPU runs
 to two worker processes (spawned, each with (cores - 1) // 2 torch
 threads) and do their card runs meanwhile; only phase 29 prints
@@ -268,7 +265,6 @@ calls from Python (host-bound for the small operators; an operator that
 fits in the 50 MB L2 stays there), and for the headline operators also on
 the device alone with the L2 flushed before each call.
 """
-import argparse
 import atexit
 import contextlib
 import copy
@@ -576,15 +572,7 @@ def rel_diff(a, b):
     return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(
-        description="smoke run of fenapack_tpu_torch on one CUDA GPU")
-    ap.add_argument("--gspmd-prebuild", choices=("early", "late"),
-                    default="late",
-                    help="build the GSPMD solvers of phases 35-36 on the "
-                         "rank processes at the start of phase 35 (late) "
-                         "or beside phases 29-31 (early)")
-    opts = ap.parse_args(argv)
+def main():
     t_start = time.perf_counter()
     phase_s = {}
 
@@ -1850,9 +1838,7 @@ def main(argv=None):
                                   maxiter=100)}
     pool = RankPool(SPMD_RANKS, device=dev, timeout=600.0)
     atexit.register(pool.close)
-    early = opts.gspmd_prebuild == "early"
-    pool.submit(spmd_demo.rank_prepare, list(spmd_specs.values())
-                + (list(gspmd_specs.values()) if early else []))
+    pool.submit(spmd_demo.rank_prepare, list(spmd_specs.values()))
     t0 = time.perf_counter()
     # both to a nonlinear 1e-8, so that the states agree to 1e-6 (the JAX
     # package's test_anderson_same_solution_as_picard); the CPU's Anderson
@@ -2058,8 +2044,7 @@ def main(argv=None):
     prep = pool.collect()
     print(f"[spmd] {SPMD_RANKS} rank processes on {card.split(',')[0]} "
           f"(one card, gloo, halos staged through host memory), started "
-          f"with phase 29: solvers of phases 32-{36 if early else 34} "
-          f"built in "
+          f"with phase 29: solvers of phases 32-34 built in "
           f"{max(prep):.3f} s beside phases 29-31, waited "
           f"{time.perf_counter() - t0:.3f} s more", flush=True)
 
@@ -2210,10 +2195,9 @@ def main(argv=None):
     # K2 and K1 on the owned rows over global columns (and on the multigrid
     # levels, which are whole on every rank) against the plain version
     t0 = time.perf_counter()
-    if not early:
-        prep = pool.run(spmd_demo.rank_prepare, list(gspmd_specs.values()))
-        print(f"[gspmd-kernels] GSPMD solvers built on the ranks in "
-              f"{max(prep):.3f} s", flush=True)
+    prep = pool.run(spmd_demo.rank_prepare, list(gspmd_specs.values()))
+    print(f"[gspmd-kernels] GSPMD solvers built on the ranks in "
+          f"{max(prep):.3f} s", flush=True)
     g_ops, gworst = 0, {}
     for gname, gspec in gspmd_specs.items():
         for kr in pool.run(spmd_demo.rank_gspmd_kernel_check, gspec):

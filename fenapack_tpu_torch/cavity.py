@@ -31,6 +31,7 @@ import torch
 from .fem.mesh import cavity_mesh
 from .models import LidDrivenCavity
 from .solvers import gmg
+from .utils import default_dtype
 from .utils.io import save_vtk
 
 LEVEL = 4
@@ -119,8 +120,7 @@ def main(argv=None):
     ap.add_argument("--vtk", default=None, help="write the last state")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    dtype = args.dtype or ("float64" if torch.device(args.device).type
-                           == "cpu" else "float32")
+    dtype = args.dtype or default_dtype(args.device, cuda="float32")
     if args.device.startswith("cuda"):
         print(f"device: {torch.cuda.get_device_name(0)}", flush=True)
     mesh = cavity_mesh(args.level)

@@ -51,6 +51,7 @@ import torch
 from .fem.mesh import CYLINDER
 from .models import CylinderChannel2D
 from .solvers import gmg
+from .utils import default_dtype
 from .utils.functionals import (boundary_reaction, eval_p1,
                                 make_device_functional)
 
@@ -68,12 +69,6 @@ def default_dt(level: int) -> float:
     halved with the mesh: 0.00625 at level 2 (the command line's default
     is the JAX demo's 0.0125)."""
     return 0.025 / 2 ** level
-
-
-def default_dtype(device) -> str:
-    """``mixed`` on a CUDA device, ``float64`` on the CPU (the JAX demo's
-    choice by backend)."""
-    return "float64" if torch.device(device).type == "cpu" else "mixed"
 
 
 def build(level: int, re: int, *, device, unsteady: bool = False,

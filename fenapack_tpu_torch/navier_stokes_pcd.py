@@ -36,6 +36,7 @@ from .fem.dofmap import DirichletBC
 from .solvers import gmg
 from .solvers.config import SolverConfig, env_overrides, overrides
 from .solvers.nonlinear import NonlinearSolver
+from .utils import default_dtype
 from .utils.io import save_vtk
 from .utils.timing import Timings, device_trace
 
@@ -77,7 +78,7 @@ def parser() -> argparse.ArgumentParser:
 
 def build(args, device):
     """``(solver, asm, dtype)`` for the parsed flags on ``device``."""
-    dtype = args.dtype or ("float64" if device.type == "cpu" else "mixed")
+    dtype = args.dtype or default_dtype(device)
     ap_h = v_h = None
     if args.ls == "iterative":
         hier = gmg.build_hierarchy(meshmod.backward_step_mesh(0), args.level)

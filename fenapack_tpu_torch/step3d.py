@@ -41,6 +41,7 @@ import torch
 from .fem import mesh3d
 from .models import StepFlow3D
 from .solvers import gmg
+from .utils import default_dtype
 
 NU = 0.05
 LENGTH = 3.0
@@ -52,12 +53,6 @@ CFG = {"velocity.smooth_iters": 3, "velocity.cycles": 2}
 OTHER = {"lu": {"pcd.ap.method": "lu", "krylov.maxiter": 100},
          "jacobi": {"pcd.ap.method": "chebyshev", "pcd.ap.iters": 25},
          "chebyshev": {"pcd.ap.method": "chebyshev", "pcd.ap.iters": 25}}
-
-
-def default_dtype(device) -> str:
-    """``float32`` on a CUDA device, ``float64`` on the CPU (the JAX demo's
-    choice by backend)."""
-    return "float64" if torch.device(device).type == "cpu" else "float32"
 
 
 def build(level: int, *, length: float = LENGTH, nu: float = NU, device,
@@ -163,7 +158,7 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     cuda = args.device.startswith("cuda")
-    dtype = args.dtype or default_dtype(args.device)
+    dtype = args.dtype or default_dtype(args.device, cuda="float32")
     rtol_lin = (max(args.rtol * 1e-2, 1e-8) if args.rtol_lin is None
                 else args.rtol_lin)
     if cuda:

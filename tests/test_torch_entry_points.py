@@ -1,6 +1,7 @@
-"""The last three entry points of the PyTorch port at their JAX demos'
-surface, and the two repairs they rest on, against the JAX package on the
-CPU in f64.
+"""The cylinder's entry point of the PyTorch port at its JAX demo's
+surface, and the two repairs the entry points rest on, against the JAX
+package run on the same inputs on the CPU in f64 (``step3d`` and
+``cavity``: ``test_torch_entry_points_step3d_cavity.py``).
 
   * ``UnsteadySolver`` takes ``pcd_marker`` as a required keyword: omitted
     it raises; with the outflow rows the JAX demo's channel case
@@ -15,19 +16,11 @@ CPU in f64.
     through ``main`` against the JAX package's
     ``UnsteadySolver.solve(picard_iters=3)`` with the JAX demo's host
     recording: counts equal, states and the ``(t, c_D, c_L, dP)`` rows
-    within 1e-8; 2D-1 by Picard, the first two steps, counts equal to the
-    JAX demo's; the ``--ls direct`` configuration equal to the demo's.
-  * ``step3d``: level 1 with ``--supg --nu 2e-3`` against the JAX demo's
-    build (the count equal, states 1e-8), and with ``--dtype float32``
-    (counts within 1 per step of the JAX demo's).
-  * ``cavity``: ``main`` at level 0, Re 50, Picard with BRM1 and BRM2, and a
-    continuation to Re 200: every count equal to the JAX demo's path; the
-    VTK file parses.
-
-Counts that take the JAX package long on a loaded machine are recorded
-(``JAX_*`` below, recomputed by running this file as a script); the rest
-run both packages.
+    within 1e-8; 2D-1 by Picard, the first step, count equal to the JAX
+    demo's and states within 1e-8; the ``--ls direct`` configuration equal
+    to the demo's.
 """
+import contextlib
 import dataclasses
 import os
 import sys
@@ -38,8 +31,12 @@ import pytest
 torch = pytest.importorskip("torch")
 # test workers share the machine's cores: one PyTorch thread each
 torch.set_num_threads(1)
+try:
+    from threadpoolctl import threadpool_limits
+except ImportError:              # the limit below only saves time
+    threadpool_limits = None
 
-from fenapack_tpu_torch import cavity, cylinder, step3d
+from fenapack_tpu_torch import cylinder
 from fenapack_tpu_torch.fem import mesh as tmesh
 from fenapack_tpu_torch.fem.assemble import NSAssembler
 from fenapack_tpu_torch.fem.dofmap import DirichletBC
@@ -48,26 +45,26 @@ from fenapack_tpu_torch.solvers.config import (SolverConfig, env_overrides,
                                                overrides)
 from fenapack_tpu_torch.solvers.oseen import OseenSolver
 from fenapack_tpu_torch.solvers.unsteady import UnsteadySolver
+from fenapack_tpu_torch.utils import default_dtype
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the JAX package's counts of the demo's channel case (five steps)
 CHANNEL_ITERS = [15, 15, 15, 14, 14]
-# the JAX package's counts on the CPU in f64, recorded by running this file
-# as a script (``python -m tests.test_torch_entry_points``): the JAX demos'
-# 2D-1 by Picard at level 0 (two steps), step3d -l 1 --dtype float32 (two
-# steps) and the cavity at level 0 (per stage)
-JAX_CYL_PICARD = [42, 50]
-JAX_STEP3D_F32 = [40, 37]
-JAX_CAVITY = {"BRM1 Re 50": [[22, 29, 28, 28, 28, 27, 28]],
-              "BRM2 Re 50": [[26, 29, 29, 28, 28, 28, 28]],
-              "BRM2 Re 100 -> 200": [[28, 31, 31, 31, 31, 31, 31, 31, 30],
-                                     [36, 37, 36, 36, 36, 36, 36, 34, 36,
-                                      35, 36]]}
 # SolverConfig fields whose defaults differ on purpose: (port, JAX)
 INTENDED = {"krylov.hi_krylov": (True, False)}
 # the JAX package's TPU workarounds, not carried by the port
 JAX_ONLY = {"krylov.split_assembly", "krylov.df32_matvec", "krylov.ds_basis",
             "pcd.ap.smoother", "pcd.mp.smoother"}
+
+
+@pytest.fixture(autouse=True)
+def _one_host_thread():
+    """numpy's and scipy's BLAS (the host-side setup of both packages) and
+    OpenMP on one thread as well: spinning BLAS threads slow a test many
+    times over while the other workers hold the cores."""
+    with (threadpool_limits(limits=1) if threadpool_limits
+          else contextlib.nullcontext()):
+        yield
 
 
 def _rel(a, b):
@@ -241,21 +238,21 @@ def test_cylinder_exact_loop_matches_jax(tmp_path, capsys, monkeypatch):
                        out["hist"], rtol=1e-9, atol=0.0)
 
 
-def _jax_cylinder_picard():
-    """The JAX demo's 2D-1 by Picard at level 0: its first two counts."""
+def test_cylinder_picard_2d1_counts_match_jax():
+    """2D-1 by Picard at level 0 (``--nls picard``: the port's ``build``
+    against the JAX demo's): the first step's count equal, states within
+    1e-8.  Each package inverts the 4,764-dof P1 bottom once (6 s)."""
+    _jax()
     import demo_cylinder
     from fenapack_tpu.solvers.nonlinear import NonlinearSolver as JNL
+    rt = cylinder.build(0, 20, device="cpu", nls="picard").solve(
+        rtol=cylinder.RTOL, max_steps=1)
     asm, bcs, cfg, ap_h, v_h, _ = demo_cylinder.build(
         0, 20, "float64", ls="iterative", nls="picard")
     rj = JNL(asm, bcs, cfg, linearization="picard", ap_hierarchy=ap_h,
-             velocity_hierarchy=v_h).solve(rtol=cylinder.RTOL, max_steps=2)
-    return [int(i) for i in rj.linear_iters]
-
-
-def test_cylinder_picard_2d1_counts_match_jax():
-    rt = cylinder.build(0, 20, device="cpu", nls="picard").solve(
-        rtol=cylinder.RTOL, max_steps=2)
-    assert rt.linear_iters == JAX_CYL_PICARD
+             velocity_hierarchy=v_h).solve(rtol=cylinder.RTOL, max_steps=1)
+    assert rt.linear_iters == [int(i) for i in rj.linear_iters]
+    assert _rel(rt.w.numpy(), rj.w) <= 1e-8
     assert max(rt.lin_rel) <= 1e-8
 
 
@@ -288,154 +285,12 @@ def test_cylinder_command_line_surface():
     assert (a.level, a.nls, a.ls, a.dtype, a.rtol, a.t_end, a.dt,
             a.maxiter, a.device) == (1, "newton", "iterative", None, 1e-6,
                                      8.0, 0.0125, None, "cuda")
-    assert cylinder.default_dtype("cpu") == "float64"
-    assert cylinder.default_dtype("cuda") == "mixed"
+    assert default_dtype("cpu") == "float64"
+    assert default_dtype("cuda") == "mixed"
+    assert default_dtype("cpu", cuda="float32") == "float64"
+    assert default_dtype("cuda", cuda="float32") == "float32"
     nl = cylinder.build(0, 20, device="cpu", dtype="mixed", maxiter=60)
     o = nl.oseen
     assert (o.config.dtype, o.config.krylov.maxiter) == ("float32", 60)
     assert nl.asm.dtype == torch.float64
     assert o.velocity_hierarchy.dtype == torch.float32
-
-
-# --------------------------------------------------------------------- #
-# step3d
-# --------------------------------------------------------------------- #
-
-def _jax_step3d(argv, steps):
-    """The JAX demo's build at level 1 (``--block 0``, the single-round f64
-    solve) with ``argv``: ``steps`` Picard steps at the demo's linear
-    tolerance."""
-    import demo_step3d
-    os.environ["FENAPACK_CFG"] = "krylov.hi_krylov=True"
-    try:
-        return demo_step3d.build(demo_step3d.make_parser().parse_args(
-            ["-l", "1", "--block", "0"] + argv)).solve_fused(
-            rtol=step3d.RTOL, rtol_lin=1e-7, max_steps=steps)
-    finally:
-        del os.environ["FENAPACK_CFG"]
-
-
-def test_step3d_supg_matches_jax_demo(capsys):
-    """``step3d -l 1 --supg --nu 2e-3`` through ``main`` against the JAX
-    demo's build: the first Picard step at the demo's linear tolerance
-    ``max(rtol / 100, 1e-8)``, the same count, states within 1e-8."""
-    _jax()
-    argv = ["--supg", "--nu", "2e-3"]
-    out = step3d.main(["-l", "1", "--device", "cpu", "--max-steps", "1"]
-                      + argv)
-    assert "rtol_lin=1e-07" in capsys.readouterr().out
-    rt, rj = out["result"], _jax_step3d(argv, 1)
-    assert rt.linear_iters == [int(i) for i in rj.linear_iters]
-    assert _rel(rt.w.numpy(), rj.w) <= 1e-8
-    cfg = out["solver"].oseen.config
-    assert cfg.system_supg and cfg.krylov.rtol == 1e-8
-
-
-def test_step3d_float32_counts_match_jax():
-    """``step3d -l 1 --dtype float32``: two Picard steps within one count
-    of the JAX demo's (its f32 preconditioner sums in another order), each
-    solve at the demo's linear tolerance."""
-    out = step3d.main(["-l", "1", "--device", "cpu", "--max-steps", "2",
-                       "--dtype", "float32"])
-    rt, o = out["result"], out["solver"].oseen
-    assert len(rt.linear_iters) == len(JAX_STEP3D_F32)
-    assert all(abs(a - b) <= 1 for a, b in zip(rt.linear_iters,
-                                                JAX_STEP3D_F32))
-    assert max(rt.lin_rel) <= 1e-7
-    assert (o.config.dtype, o.config.krylov.rtol) == ("float32", 2e-6)
-    assert o.velocity_hierarchy.dtype == torch.float32
-    assert out["solver"].asm.dtype == torch.float64
-
-
-def test_step3d_command_line_surface():
-    nl = step3d.build(1, device="cpu", gmg_levels=1, dtype="float32",
-                      velocity_iters=12, maxiter=500)
-    o = nl.oseen
-    assert (o.config.dtype, o.config.krylov.maxiter,
-            o.config.velocity.iters) == ("float32", 120, 12)
-    assert len(o.velocity_hierarchy.asms) == 2
-    assert o.velocity_hierarchy.dtype == torch.float32
-    assert step3d.default_dtype("cuda") == "float32"
-    assert step3d.build(0, device="cpu", velocity="lu",
-                        maxiter=500).oseen.config.krylov.maxiter == 100
-
-
-# --------------------------------------------------------------------- #
-# cavity
-# --------------------------------------------------------------------- #
-
-def _jax_cavity_demo(level, Res, pcd, nls="picard", rtol=1e-5):
-    """The JAX demo's loop (``demos/demo_cavity.py``): per stage the
-    counts."""
-    from fenapack_tpu.fem import mesh as jm
-    from fenapack_tpu.fem.assemble import NSAssembler as JAsm
-    from fenapack_tpu.fem.dofmap import DirichletBC as JBC
-    from fenapack_tpu.solvers.config import SolverConfig as JCfg
-    from fenapack_tpu.solvers.config import overrides as joverrides
-    from fenapack_tpu.solvers.nonlinear import NonlinearSolver as JNL
-    mesh = jm.cavity_mesh(level)
-
-    def lid(x):
-        v = np.zeros((x.shape[0], 2))
-        v[:, 0] = 1.0
-        return v
-
-    w, its = None, []
-    for Re in Res:
-        asm = JAsm(mesh, 1.0 / Re)
-        bcs = [JBC.velocity(asm.W, [jm.WALL],
-                            lambda x: np.zeros((x.shape[0], 2))),
-               JBC.velocity(asm.W, [jm.INFLOW], lid)]
-        cfg = joverrides(JCfg(), {"pcd.variant": pcd, "dtype": "float64"})
-        res = JNL(asm, bcs, cfg, linearization=nls, enclosed=True).solve(
-            w0=w, rtol=rtol, damping=1.0)
-        w = res.w
-        its.append([int(i) for i in res.linear_iters])
-    return its
-
-
-@pytest.mark.parametrize("argv,case", [
-    (["--Re", "50", "--pcd", "BRM1"], "BRM1 Re 50"),
-    (["--Re", "50", "--pcd", "BRM2"], "BRM2 Re 50"),
-    (["--Re", "200", "--continuation"], "BRM2 Re 100 -> 200"),
-])
-def test_cavity_main_matches_jax_demo(tmp_path, capsys, argv, case):
-    """``cavity -l 0`` through ``main``: every stage's per-step counts equal
-    to the JAX demo's path; the VTK file parses to the mesh."""
-    vtk = tmp_path / "cavity.vtk"
-    out = cavity.main(["-l", "0", "--device", "cpu", "--vtk", str(vtk)]
-                      + argv)
-    assert capsys.readouterr().out.count("=== cavity l=0") == len(
-        JAX_CAVITY[case])
-    assert [r.linear_iters for r in out["results"]] == JAX_CAVITY[case]
-    assert all(r.converged for r in out["results"])
-    o = out["solver"].oseen
-    assert (o.config.velocity.method, o.config.pcd.ap.method) == ("lu",
-                                                                 "lu")
-    mesh = tmesh.cavity_mesh(0)
-    txt = vtk.read_text()
-    assert f"POINTS {mesh.num_vertices} float" in txt
-    assert f"CELLS {mesh.num_cells} {4 * mesh.num_cells}" in txt
-
-
-def test_cavity_stages():
-    assert cavity.reynolds_stages(500.0, False) == [500.0]
-    assert cavity.reynolds_stages(500.0, True) == [100.0, 200.0, 400.0,
-                                                   500.0]
-    assert cavity.reynolds_stages(400.0, True) == [100.0, 200.0, 400.0]
-
-
-if __name__ == "__main__":
-    # the recorded JAX references, recomputed (about two minutes):
-    # python -m tests.test_torch_entry_points
-    os.environ["JAX_PLATFORMS"] = "cpu"
-    import jax
-    jax.config.update("jax_enable_x64", True)
-    sys.path.insert(0, os.path.join(ROOT, "demos"))
-    print("JAX_CYL_PICARD =", _jax_cylinder_picard())
-    print("JAX_STEP3D_F32 =", [int(i) for i in _jax_step3d(
-        ["--dtype", "float32"], 2).linear_iters])
-    print("JAX_CAVITY =", {
-        case: _jax_cavity_demo(0, Res, pcd) for case, Res, pcd in (
-            ("BRM1 Re 50", [50.0], "BRM1"), ("BRM2 Re 50", [50.0], "BRM2"),
-            ("BRM2 Re 100 -> 200", [100.0, 200.0], "BRM2"))})
