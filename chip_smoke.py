@@ -36,10 +36,12 @@ processes), in phases that each print one or more lines:
                against the plain version in f64 and f32, 1 and 2 RHS; per
                operator the kernel, plain and cuSPARSE CSR times and the HBM
                bound.  Then the block product (A1 on both components plus
-               the four R_ab in one pass) against its plain version on every
+               the four R_ab in one pass, given the pattern's row lengths,
+               as the solvers call it) against its plain version on every
                velocity level in f64 and f32, with R, with R and a y0 term,
                and without R; for level 4 its times beside the bound of the
-               whole product and six cuSPARSE CSR products.
+               whole product (the pattern's own entries; the padded slots
+               beside it) and six cuSPARSE CSR products.
   7. cavity  - the lid-driven cavity through the model entry point
                ``LidDrivenCavity(level=4).solver("BRM2", linearization=
                "newton", gmg_subsolves=True)``: 148,739 dofs, ELL in f64,
@@ -98,14 +100,16 @@ processes), in phases that each print one or more lines:
                states within 1e-6.
  17. step3d-kernels - BASELINE config 4 at level 3, length 3 (760,852
                dofs; velocity levels of 685 / 4,473 / 32,113 / 242,913
-               rows, tet P2 rows up to 65 wide): the wind after one Picard step; on every
-               velocity level the block product at d = 3 without R and with
-               the Newton R (and y0), and the single product on D, B^T, Ap
-               of every pressure level, Mp and Kp, through K3 against the
-               plain version (f64, 1e-12); for the fine A1 the times of the
-               kernel, the plain version and three (twelve with R) cuSPARSE
-               CSR products beside two bounds: the padded ELL bytes and the
-               bytes of the pattern's own entries, over 3.35 TB/s.
+               rows, tet P2 rows up to 85 slots wide): the wind after one
+               Picard step; on every velocity level the block product at d =
+               3 with the pattern's row lengths, without R and with the
+               Newton R (and y0), in f64 (1e-12) and f32 (1e-5), and the
+               single product on D, B^T, Ap of every pressure level, Mp and
+               Kp (f64), through K3 against the plain version; for the fine
+               A1 the times of the kernel (L2 flushed and per call), the
+               plain version and three (twelve with R) cuSPARSE CSR products
+               beside two bounds: the bytes of the pattern's own entries
+               (the bound) and of the padded ELL slots, over 3.35 TB/s.
  18. step3d  - config 4 through ``step3d.build(3)``: setup seconds by
                stage, two Picard steps each solved to a true 1e-8 under the
                cap of 120; counts, ``lin_rel``, seconds per step, K3
@@ -411,10 +415,12 @@ def path_operators(nl):
 
 
 def ell_path_operators(o, wind):
-    """``(name, kind, cols, n_cols, vals, R)`` of every ELL operator that
-    the path of the Oseen solver ``o`` (ELL layout) applies at ``wind``, in
-    the dtype it applies it: ``kind`` "block" (the velocity block product,
-    ``R`` its reaction blocks or None) or "single".  The high-precision
+    """``(name, kind, cols, n_cols, vals, R, row_len)`` of every ELL
+    operator that the path of the Oseen solver ``o`` (ELL layout) applies
+    at ``wind``, in the dtype it applies it: ``kind`` "block" (the velocity
+    block product, ``R`` its reaction blocks or None, ``row_len`` its
+    pattern's row lengths) or "single" (``R`` and ``row_len`` None).  The
+    high-precision
     system and residual (A1 on the fine pattern as a block and as a single
     product, D, B^T; the P2 mass of a time scheme) and the compute-dtype
     preconditioner (A1 on every velocity multigrid level or on the fine
@@ -426,7 +432,7 @@ def ell_path_operators(o, wind):
     ops = []
     hi = asm.pat_p2_hi
     A1h, Rh = o._operator_values_raw(wind.to(asm.dtype), hi=True)
-    ops += [("A1 system", "block", hi.cols, hi.n_cols, A1h, Rh),
+    ops += [("A1 system", "block", hi.cols, hi.n_cols, A1h, Rh, hi.row_len),
             ("A1 residual", "single", hi.cols, hi.n_cols,
              asm.picard_matrix_values(wind.to(asm.dtype), hi=True), None)]
     sets = [("", asm.const_hi)] + ([] if asm.const is asm.const_hi
@@ -450,7 +456,7 @@ def ell_path_operators(o, wind):
         for l, (la, (A1, R)) in enumerate(zip(vh.asms, vals["levels"])):
             p = la.pat_p2
             ops.append((f"A1 velocity level {l}", "block", p.cols, p.n_cols,
-                        A1, R))
+                        A1, R, p.row_len))
         if vals.get("p1_vals") is not None:
             p = vh.asms[0].pat_p1
             ops.append(("P1 bottom operator", "single", p.cols, p.n_cols,
@@ -458,7 +464,8 @@ def ell_path_operators(o, wind):
         transfers = [("P2", l, t) for l, t in enumerate(vh.transfers)]
     else:
         p = asm.pat_p2
-        ops.append(("A1 compute", "block", p.cols, p.n_cols, A1c, Rc))
+        ops.append(("A1 compute", "block", p.cols, p.n_cols, A1c, Rc,
+                    p.row_len))
         transfers = []
     ph = o.ap_hierarchy
     if cfg.pcd.ap.method == "gmg":
@@ -477,7 +484,7 @@ def ell_path_operators(o, wind):
     ops += [(f"{name} restrict {l + 1}->{l}", "single", t._PT.cols,
              t._PT.n_cols, t._PT.vals, None)
             for name, l, t in transfers if isinstance(t._PT, ELL)]
-    return ops
+    return [op + (None,) * (7 - len(op)) for op in ops]
 
 
 # ---- the runs of the card-against-CPU phases ------------------------- #
@@ -657,17 +664,26 @@ def main():
         libs = [measure.library(measure.csr_library(pat, v), x[b])
                 for v, b in parts]
         calls = [c for c, _ in libs]
+        t, why = block_yardsticks(pat, vals, R, x, d, (
+            (lambda: [c() for c in calls]) if all(calls) else None,
+            "; ".join(w for _, w in libs if w)))
+        return t, why
+
+    def block_yardsticks(pat, A1, R, x, d, lib):
+        """:func:`yardsticks` of the block product over the pattern ``pat``
+        (with its row lengths, as the paths call it): the bound counts the
+        rows' own entries (``bound_ms``), and beside it the padded slots
+        that the kernel does not read (``bound_padded_ms``)."""
         t, why = yardsticks(
-            lambda: ell_spmv.ell_block_spmv(pat.cols, vals, R, x,
-                                            pat.n_cols),
-            lambda: ell_spmv.ell_block_spmv_plain(pat.cols, vals, R, x,
+            lambda: ell_spmv.ell_block_spmv(pat.cols, A1, R, x, pat.n_cols,
+                                            row_len=pat.row_len),
+            lambda: ell_spmv.ell_block_spmv_plain(pat.cols, A1, R, x,
                                                   pat.n_cols),
-            ((lambda: [c() for c in calls]) if all(calls) else None,
-             "; ".join(w for _, w in libs if w)),
-            measure.ell_block_bytes(vals, R, d, pat.n_cols),
-            measure.ell_block_flops(vals, R, d), dt)
-        t["bound_nnz_ms"] = measure.bound(
-            measure.ell_block_nnz_bytes(pat, vals, R, d), 0, dt)[0]
+            lib, measure.ell_block_bytes(A1, R, d, pat.n_cols,
+                                         row_len=pat.row_len),
+            measure.ell_block_flops(A1, R, d, pat.row_len), A1.dtype)
+        t["bound_padded_ms"] = measure.bound(measure.ell_block_bytes(
+            A1, R, d, pat.n_cols), 0, A1.dtype)[0]
         return t, why
 
     # ---- 2. build ------------------------------------------------------- #
@@ -847,7 +863,7 @@ def main():
             rels = []
             for RR, yy in ((R, None), (R, y0), (None, None)):
                 y = ell_spmv.ell_block_spmv(pat.cols, A1, RR, x, pat.n_cols,
-                                            yy)
+                                            yy, row_len=pat.row_len)
                 yp = ell_spmv.ell_block_spmv_plain(pat.cols, A1, RR, x,
                                                    pat.n_cols, yy)
                 torch.cuda.synchronize()
@@ -860,10 +876,6 @@ def main():
                     f"with R and y0 {rels[1]}, without R {rels[2]} (tol "
                     f"{tol})")
             if l == top:
-                kernel = lambda: ell_spmv.ell_block_spmv(pat.cols, A1, R, x,
-                                                         pat.n_cols)
-                plain = lambda: ell_spmv.ell_block_spmv_plain(
-                    pat.cols, A1, R, x, pat.n_cols)
                 # yardstick: the six cuSPARSE CSR products it replaces
                 # (A1 on either component, the four R_ab), without the sums
                 six = [measure.library(measure.csr_library(pat, v), x[b])
@@ -872,12 +884,10 @@ def main():
                 calls = [c for c, _ in six]
                 lib = ((lambda: [c() for c in calls]) if all(calls)
                        else None, "; ".join(w for _, w in six if w))
-                nbytes = measure.ell_block_bytes(A1, R, 2, pat.n_cols)
-                t, why = yardsticks(kernel, plain, lib, nbytes,
-                                    measure.ell_block_flops(A1, R, 2), dt)
+                t, why = block_yardsticks(pat, A1, R, x, 2, lib)
                 brec[kind].update(t)
                 line += (f"; {json.dumps(t)}; six cuSPARSE CSR products "
-                         f"{why or 'taken'}; {nbytes} B")
+                         f"{why or 'taken'}")
             print(line, flush=True)
             _require(max(rels) <= tol, f"block product level {l} {kind}: "
                      f"kernel disagrees with plain ({rels} > {tol})")
@@ -1042,7 +1052,7 @@ def main():
                                (A1b, None, y0)):
                 abs_err, rel = rel_err(
                     ell_spmv.ell_block_spmv(pat.cols, AA, RR, x, pat.n_cols,
-                                            yy),
+                                            yy, row_len=pat.row_len),
                     ell_spmv.ell_block_spmv_plain(pat.cols, AA, RR, x,
                                                   pat.n_cols, yy))
                 rels.append(rel)
@@ -1055,11 +1065,6 @@ def main():
             if l == top:
                 for tag, AA, RR in (("with_R", A1, R),
                                     ("without_R", A1b, None)):
-                    kernel = (lambda AA=AA, RR=RR: ell_spmv.ell_block_spmv(
-                        pat.cols, AA, RR, x, pat.n_cols))
-                    plain = (lambda AA=AA, RR=RR:
-                             ell_spmv.ell_block_spmv_plain(
-                                 pat.cols, AA, RR, x, pat.n_cols))
                     # yardstick: the cuSPARSE CSR products it replaces
                     parts = [(AA, 0), (AA, 1)] + (
                         [] if RR is None else
@@ -1071,14 +1076,10 @@ def main():
                     lib = ((lambda calls=calls: [c() for c in calls])
                            if all(calls) else None,
                            "; ".join(w for _, w in libs if w))
-                    nbytes = measure.ell_block_bytes(AA, RR, 2, pat.n_cols)
-                    t, why = yardsticks(kernel, plain, lib, nbytes,
-                                        measure.ell_block_flops(AA, RR, 2),
-                                        dt)
+                    t, why = block_yardsticks(pat, AA, RR, x, 2, lib)
                     crec[kind]["block_" + tag] = t
                     line += (f"; {tag} {json.dumps(t)}; {len(parts)} "
-                             f"cuSPARSE CSR products {why or 'taken'}; "
-                             f"{nbytes} B")
+                             f"cuSPARSE CSR products {why or 'taken'}")
             print(line, flush=True)
             _require(max(rels) <= tol, f"cylinder block product level {l} "
                      f"{kind}: kernel disagrees with plain ({rels} > {tol})")
@@ -1251,7 +1252,7 @@ def main():
         for yy in (None, y0):
             abs_err, rel = rel_err(
                 ell_spmv.ell_block_spmv(pat.cols, A1, None, x, pat.n_cols,
-                                        yy),
+                                        yy, row_len=pat.row_len),
                 ell_spmv.ell_block_spmv_plain(pat.cols, A1, None, x,
                                               pat.n_cols, yy))
             rels.append(rel)
@@ -1261,21 +1262,14 @@ def main():
                 f"{tuple(A1.shape)} (SUPG-stabilized A1, without R): max rel "
                 f"err {rels[0]}, with y0 {rels[1]} (tol {F64_TOL})")
         if l == top:
-            kernel = lambda: ell_spmv.ell_block_spmv(pat.cols, A1, None, x,
-                                                     pat.n_cols)
-            plain = lambda: ell_spmv.ell_block_spmv_plain(pat.cols, A1, None,
-                                                          x, pat.n_cols)
             libs = [measure.library(measure.csr_library(pat, A1), x[b])
                     for b in (0, 1)]
             calls = [c for c, _ in libs]
             lib = ((lambda: [c() for c in calls]) if all(calls) else None,
                    "; ".join(w for _, w in libs if w))
-            nbytes = measure.ell_block_bytes(A1, None, 2, pat.n_cols)
-            hrec, why = yardsticks(kernel, plain, lib, nbytes,
-                                   measure.ell_block_flops(A1, None, 2),
-                                   torch.float64)
+            hrec, why = block_yardsticks(pat, A1, None, x, 2, lib)
             line += (f"; {json.dumps(hrec)}; two cuSPARSE CSR products "
-                     f"{why or 'taken'}; {nbytes} B")
+                     f"{why or 'taken'}")
         print(line, flush=True)
         _require(max(rels) <= F64_TOL, f"config 5 block product level {l}: "
                  f"kernel disagrees with plain ({rels} > {F64_TOL})")
@@ -1430,39 +1424,49 @@ def main():
         _require(rel <= F64_TOL, f"config 4 {name}: kernel disagrees with "
                  f"plain ({rel} > {F64_TOL})")
     top = len(s3levels) - 1
-    for l, (pat, A1, R) in enumerate(s3levels):
-        x = torch.as_tensor(rng.standard_normal((3, pat.n_cols)),
-                            dtype=torch.float64, device=dev)
-        y0 = torch.as_tensor(rng.standard_normal((3, pat.n_rows)),
-                             dtype=torch.float64, device=dev)
-        rels = []
-        for RR, yy in ((None, None), (None, y0), (R, None), (R, y0)):
-            abs_err, rel = rel_err(
-                ell_spmv.ell_block_spmv(pat.cols, A1, RR, x, pat.n_cols, yy),
-                ell_spmv.ell_block_spmv_plain(pat.cols, A1, RR, x,
-                                              pat.n_cols, yy))
-            rels.append(rel)
-            brec["f64"]["max_abs_err"] = max(brec["f64"]["max_abs_err"],
-                                             abs_err)
-        print(f"[step3d-kernels] block product d = 3 velocity level {l} f64 "
-              f"ELL {tuple(A1.shape)}: max rel err without R {rels[0]}, "
-              f"with y0 {rels[1]}, with R {rels[2]}, with R and y0 "
-              f"{rels[3]} (tol {F64_TOL})", flush=True)
-        _require(max(rels) <= F64_TOL, f"config 4 block product level {l}: "
-                 f"kernel disagrees with plain ({rels} > {F64_TOL})")
+    for l, (pat, A1v, Rv) in enumerate(s3levels):
+        lens = pat.row_len.double()
+        line = (f"[step3d-kernels] block product d = 3 velocity level {l} "
+                f"ELL {tuple(A1v.shape)}, rows of {float(lens.mean()):.2f} "
+                f"entries ({int(lens.min())} to {int(lens.max())}), with the "
+                f"pattern's row lengths: max rel err without R, with y0, "
+                f"with R, with R and y0")
+        for dt in (torch.float64, torch.float32):
+            kind = ell_spmv._NAMES[dt]
+            tol = F64_TOL if kind == "f64" else F32_TOL
+            A1, R = A1v.to(dt).contiguous(), Rv.to(dt).contiguous()
+            x = torch.as_tensor(rng.standard_normal((3, pat.n_cols)),
+                                dtype=dt, device=dev)
+            y0 = torch.as_tensor(rng.standard_normal((3, pat.n_rows)),
+                                 dtype=dt, device=dev)
+            rels = []
+            for RR, yy in ((None, None), (None, y0), (R, None), (R, y0)):
+                abs_err, rel = rel_err(
+                    ell_spmv.ell_block_spmv(pat.cols, A1, RR, x, pat.n_cols,
+                                            yy, row_len=pat.row_len),
+                    ell_spmv.ell_block_spmv_plain(pat.cols, A1, RR, x,
+                                                  pat.n_cols, yy))
+                rels.append(rel)
+                brec[kind]["max_abs_err"] = max(brec[kind]["max_abs_err"],
+                                                abs_err)
+            line += f"; {kind} {rels} (tol {tol})"
+            _require(max(rels) <= tol, f"config 4 block product level {l} "
+                     f"{kind}: kernel disagrees with plain ({rels} > {tol})")
+        print(line, flush=True)
         if l != top:
             continue
-        for key, RR in (("block", None), ("block_with_R", R)):
-            t, why = time_ell("block", pat, A1, RR, 3, x)
+        x = torch.as_tensor(rng.standard_normal((3, pat.n_cols)),
+                            dtype=torch.float64, device=dev)
+        for key, RR in (("block", None), ("block_with_R", Rv)):
+            t, why = time_ell("block", pat, A1v, RR, 3, x)
             s3rec[key] = t
             print(f"[step3d-kernels] {S3_HEADLINE} block product d = 3 "
                   f"{'with' if RR is not None else 'without'} R: "
                   f"{json.dumps(t)}; {3 if RR is None else 12} cuSPARSE CSR "
-                  f"products {why or 'taken'}; "
-                  f"{measure.ell_block_bytes(A1, RR, 3, pat.n_cols)} B "
-                  f"padded ELL, {measure.ell_block_nnz_bytes(pat, A1, RR, 3)}"
-                  f" B entries alone (nnz {pat.nnz}, {pat.n_rows} x "
-                  f"{pat.K})", flush=True)
+                  f"products {why or 'taken'}; kernel at "
+                  f"{t['bound_ms'] / t['device_ms']:.3f} of the entries' "
+                  f"bound ({pat.nnz} entries of {pat.n_rows} x {pat.K} "
+                  f"slots; padded: {t['bound_padded_ms']} ms)", flush=True)
     del s3levels
     done("step3d-kernels", t0)
 
@@ -1895,7 +1899,7 @@ def main():
         products with 1 and 2 right-hand sides, block products with and
         without y0.  Returns the operators by name."""
         ops = {op[0]: op for op in ell_path_operators(o, wind)}
-        for name, kind, cols, n_cols, vals0, R0 in ops.values():
+        for name, kind, cols, n_cols, vals0, R0, lens in ops.values():
             line = []
             for dt in sorted((torch.float64, torch.float32),
                              key=lambda t: t != vals0.dtype):
@@ -1919,7 +1923,7 @@ def main():
                     for yy in (None, rnd(o.d, cols.shape[0])):
                         a, r = rel_err(
                             ell_spmv.ell_block_spmv(cols, vals, R, x, n_cols,
-                                                    yy),
+                                                    yy, row_len=lens),
                             ell_spmv.ell_block_spmv_plain(cols, vals, R, x,
                                                           n_cols, yy))
                         brec[kd]["max_abs_err"] = max(
@@ -2410,7 +2414,7 @@ def main():
         w = (w[-1] if isinstance(w, list) else w).w
         ops = check_path_operators("entry-points", k, o, w[:o.n_u], n37)
         name = headline[k]
-        _, kind, _, _, vals, R = ops[name]
+        _, kind, _, _, vals, R, _ = ops[name]
         pat = (o.asm.pat_p2_hi if name == "A1 system" else
                o.asm.pat_divT if name == "Bt0 (compute)" else
                o.velocity_hierarchy.asms[-1].pat_p2)

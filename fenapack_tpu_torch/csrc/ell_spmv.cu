@@ -4,68 +4,98 @@
 // _spmv_kernel (:44), launched by _ell_spmv_pallas (:57, pallas_call :60)
 // through PallasSpMV.__call__ (:101) and ell_spmv (:109).  Layout: the ELL
 // arrays of fenapack_tpu/ops/sparse.py (ELL): vals and cols are (n_rows, K)
-// row-major, cols int32; padding slots hold col 0 and val 0, so they add
-// nothing.  Two products over that layout:
+// row-major, cols int32; padding slots follow each row's entries and hold
+// col 0 and val 0, so they add nothing.  Two products over that layout:
 //
 //   ell_spmv        y[i, q] = sum_k vals[i, k] * x[cols[i, k], q]
 //                   x (n_cols, nrhs) row-major, nrhs in 1..8: one pass over
 //                   the matrix serves every right-hand side;
 //   ell_block_spmv  y[a, i] = sum_k A1[i, k] * x[a, c] + y0[a, i]
 //                             + sum_b sum_k R[a, b, i, k] * x[b, c],
-//                   c = cols[i, k], a, b < d, d in 1..3: the velocity block
-//                   of a d-component field whose 1 + d*d operators share one
-//                   column array (the Picard operator A1 on the diagonal,
-//                   the Newton reaction blocks R, either of R and y0 may be
-//                   absent).  x is (d, n_cols), y and y0 are (d, n_rows).
-//                   The reference composes this from d + d*d single
-//                   products; here the columns and every value plane are
-//                   read once.
+//                   c = cols[i, k], k < row_len[i], a, b < d, d in 1..3: the
+//                   velocity block of a d-component field whose 1 + d*d
+//                   operators share one column array (the Picard operator
+//                   A1 on the diagonal, the Newton reaction blocks R, either
+//                   of R and y0 may be absent).  x is (d, n_cols), y and y0
+//                   are (d, n_rows); row_len (n_rows) int32 is each row's
+//                   entry count, or absent (every row K long).  The
+//                   reference composes this from d + d*d single products;
+//                   here the columns and every value plane are read once.
 //
-// Bound: device memory.  One product reads its value planes and the int32
-// columns once, gathers x and writes y.  At the fine level of the level-4
-// lid-driven cavity, (66049, 19) in f64, the single product moves 10.04 MB
-// + 5.02 MB + ~1.06 MB = 16.1 MB (~4.8 us at 3.35 TB/s) and the Newton
-// block product 5 x 10.04 MB + 5.02 MB + ~2.1 MB = 57.3 MB (~17.1 us),
-// where six single products move 96.7 MB.  The operations (2 per slot and
-// component) stay far below the FP64 peak.
+// Bound: device memory.  A product must read the int32 column and the
+// value of each of its planes for every entry once, gather x and write y;
+// the operations (2 per entry and component) stay far below the FP64 peak.
 //
-// Design.  With one thread per row reading device memory directly,
-// neighbouring threads load addresses K entries apart and a warp touches 32
-// cache lines per load; cold, that is latency bound (41% of the bound on
-// the card).  Here a block works on tiles of R consecutive rows.  In this
-// layout a tile is one contiguous stretch of R*K entries of cols and of
-// every value plane, so the block copies those stretches into shared memory
-// with 16-byte coalesced asynchronous copies (cp.async.cg), waits for them,
-// and only then walks the rows.  The bytes in flight come from the copies of
-// the blocks resident on an SM (four or more), not from the number of
-// threads: while one block gathers, the others' copies are under way.  (A
-// two- to four-stage ring inside each block, with fewer and larger blocks
-// per SM, measured 10-80% slower on the card: the gathers of x, not the
-// copies, need the resident threads.)  A plane's stretch need not start on
-// a 16-byte boundary (n_rows*K may be odd, and the planes of R follow each
-// other without padding), so each plane is staged at the same offset from a
-// 16-byte boundary as it has in device memory, its aligned body goes through
-// 16-byte cp.async and the few ragged entries at either end through
-// cp.async of one entry (a plain load there would stall its warp, and the
-// block behind it, for a device-memory latency per plane).  Then each
-// thread walks one row out of shared memory in slot order, accumulating in
-// the scalar type: neighbouring threads read addresses K entries apart,
-// which is free of bank conflicts for odd K (the cavity's operators have K
-// = 19 and K = 7; an even K costs a gcd(K, 32)-way conflict on the column
-// plane).  x is gathered through the read-only path, ten slots at a time
-// before any of them is used, so that every thread keeps ten loads in
-// flight: their latency, not the matrix stream, is what the walk waits for
-// (batching them took the level-4 block product from 38.8 to 32.0 us on an
-// H100).  In the block product the d lanes (a, r) of a
-// row sit side by side in one warp: lane a gathers x[a, c] only and the
-// lanes exchange their values by shuffles, so x is gathered once per slot
-// and component; lane a owns y[a, row], every product of one operator is
-// summed on its own, and the operators are added in the reference's order.
+// The single product.  At the fine level of the level-4 lid-driven cavity,
+// (66049, 19) in f64, it moves 10.04 MB + 5.02 MB + ~1.06 MB = 16.1 MB
+// (~4.8 us at 3.35 TB/s), padding included.  With one thread per row
+// reading device memory directly, neighbouring threads load addresses K
+// entries apart and a warp touches 32 cache lines per load; cold, that is
+// latency bound (41% of the bound on the card).  Here a block works on
+// tiles of R consecutive rows.  In this layout a tile is one contiguous
+// stretch of R*K entries of cols and of vals, so the block copies those
+// stretches into shared memory with 16-byte coalesced asynchronous copies
+// (cp.async.cg), waits for them, and only then walks the rows.  The bytes
+// in flight come from the copies of the blocks resident on an SM (four or
+// more), not from the number of threads: while one block gathers, the
+// others' copies are under way.  (A two- to four-stage ring inside each
+// block, with fewer and larger blocks per SM, measured 10-80% slower on
+// the card: the gathers of x, not the copies, need the resident threads.)
+// A plane's stretch need not start on a 16-byte boundary (n_rows*K may be
+// odd), so each plane is staged at the same offset from a 16-byte boundary
+// as it has in device memory, its aligned body goes through 16-byte
+// cp.async and the few ragged entries at either end through cp.async of
+// one entry (a plain load there would stall its warp, and the block behind
+// it, for a device-memory latency per plane).  Then each thread walks one
+// row out of shared memory in slot order, accumulating in the scalar type:
+// neighbouring threads read addresses K entries apart, which is free of
+// bank conflicts for odd K (the cavity's operators have K = 19 and K = 7;
+// an even K costs a gcd(K, 32)-way conflict on the column plane).  x is
+// gathered through the read-only path, ten slots at a time before any of
+// them is used, so that every thread keeps ten loads in flight: their
+// latency, not the matrix stream, is what the walk waits for (batching
+// them took the level-4 block product from 38.8 to 32.0 us on an H100).
 // R is chosen per launch: the largest of 128, 64, 32 whose tile fits four
 // times on an SM and which still leaves four tiles per SM (small operators
 // take smaller tiles to reach every SM), and smaller again where a wide row
 // would not fit at all; the grid is as many blocks as are resident at once,
 // each walking an equal share of the tiles.
+//
+// The block product.  What it must move is its entries: at config 4's
+// fine velocity level (242,913 rows of the tet P2 pattern, K = 85 slots
+// for 27.8 entries on average) 92.6 MB without R (27.65 us at 3.35 TB/s)
+// and 578.5 MB with the nine planes of R (172.70 us); with the padded
+// slots it would be 259.4 MB and 1,746 MB.  The first design of this product (the
+// single product's tiles, every value plane staged, the d lanes of a row
+// exchanging their gathers by shuffles) read every padded slot, and with R
+// a tile of whole 85-slot rows left one or two blocks on an SM; measured on
+// the H100 it took 200.23 us without R and 987.28 us with R there (three
+// and twelve cuSPARSE CSR products: 168.76 and 657.82 us), and on the
+// cavity's 2D rows 29.14 us for the level-4 Newton operator (66,049 x 19,
+// bound 17.11 us padded), 57.68 and 24.96 us for the cylinder's level 2
+// with and without R, 5.85 us for config 5's stabilized A1.
+//
+// Now a row belongs to G lanes of one warp, and a lane loads U slots before it
+// uses any.  Lane l reads slots l, l + G, ... below the row's length only: the
+// G lanes read neighbouring addresses of the column plane and of each value
+// plane, then gather x[b, c] for every component b of their own slots, and
+// accumulate one partial sum per operator and output component in registers (d
+// + d*d of them).  The geometry follows the row width K and R, one rule in the
+// launcher: rows wider than 32 slots (the tet P2 rows, about 0.33 K entries)
+// take G = 16 and U = 2, so that one batch of 32 slots covers a mean row, with
+// streaming (evict-first) loads that leave x its place in L2; narrower rows
+// (the triangle P2 rows, about 0.6 K of K = 19) take G = 8, U = 2 without R
+// and, with R, U = 1 and loads through L1 (five or ten short planes a row: on
+// the cylinder's and the cavity's Newton operators, in f32 and f64, that
+// measured faster on the card than U = 2 with streaming loads).  A fixed
+// xor-shuffle tree adds the G partial sums, so repeated runs give the same
+// bits; lane a < d then adds A1's sum, y0 and the R[a, b] sums in the
+// reference's order and writes y[a, row].  There is no shared memory: the rows
+// in flight are set by registers alone (about 32 a thread without R, over 100
+// with R at d = 3 in f64; chip_smoke.py's build phase prints them), 256 threads
+// a block, one row per G threads; lanes past the last row take part in the
+// shuffles with empty sums.  Rows given no length are read whole (the ring and
+// GSPMD paths' raw column arrays).  Measured numbers: PERF.md, section 6.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -146,20 +176,15 @@ __device__ __forceinline__ void stage_plane(E* s, const E* g, int count) {
 }
 
 // The staged tile in the block's dynamic shared memory `smem`: the column
-// plane, then the value planes.
+// plane, then the value plane.
 template <typename T>
 struct Tile {
   int* cols;
   T* vals;
-  int val_capacity;
   __device__ Tile(unsigned char* smem, int rows, int K) {
-    const int ccap = plane_capacity<int>(rows * K);
-    val_capacity = plane_capacity<T>(rows * K);
     cols = reinterpret_cast<int*>(smem);
-    vals = reinterpret_cast<T*>(smem + ccap * sizeof(int));
-  }
-  __device__ T* plane(int p) const {
-    return vals + static_cast<size_t>(p) * val_capacity;
+    vals = reinterpret_cast<T*>(smem + plane_capacity<int>(rows * K) *
+                                           sizeof(int));
   }
 };
 
@@ -180,7 +205,7 @@ __global__ void ell_spmv_kernel(const int* __restrict__ cols,
     const long long off = static_cast<long long>(row0) * K;
     const int count = min(R, n_rows - row0) * K;
     stage_plane(st.cols, cols + off, count);
-    stage_plane(st.plane(0), vals + off, count);
+    stage_plane(st.vals, vals + off, count);
     cp_async_commit();
     cp_async_wait<0>();          // this thread's copies have landed,
     __syncthreads();             // and every other thread's
@@ -188,7 +213,7 @@ __global__ void ell_spmv_kernel(const int* __restrict__ cols,
     const int row = row0 + threadIdx.x;
     if (row < n_rows) {
       const int* sc = st.cols + shift_of(cols + off) + threadIdx.x * K;
-      const T* sv = st.plane(0) + shift_of(vals + off) + threadIdx.x * K;
+      const T* sv = st.vals + shift_of(vals + off) + threadIdx.x * K;
       T acc[NRHS];
 #pragma unroll
       for (int q = 0; q < NRHS; ++q) acc[q] = T(0);
@@ -223,108 +248,119 @@ __global__ void ell_spmv_kernel(const int* __restrict__ cols,
 
 // ---- the block product ---------------------------------------------------
 
-// Lanes that share one row of a tile: a power of two, so that they sit in
-// one warp and exchange their gathers by shuffles (the fourth lane of a
-// three-component row idles).
-template <int D>
-struct RowLanes {
-  static constexpr int value = D == 3 ? 4 : D;
-};
+// Threads of a block of the block product.
+constexpr int kRowThreads = 256;
 
-template <typename T, int D, bool HAS_R>
-__global__ void ell_block_spmv_kernel(const int* __restrict__ cols,
-                                      const T* __restrict__ A1,
-                                      const T* __restrict__ Rv,
-                                      const T* __restrict__ x,
-                                      const T* __restrict__ y0,
-                                      T* __restrict__ y, int n_rows, int K,
-                                      int n_cols) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int G = RowLanes<D>::value;
-  const int R = blockDim.x / G;
-  const int n_tiles = (n_rows + R - 1) / R;
+// A load of the matrix's columns and values: streaming (evict-first, so
+// that x keeps its place in L2) or, with CACHED, through L1.
+template <bool CACHED, typename E>
+__device__ __forceinline__ E load_entry(const E* p) {
+  return CACHED ? __ldg(p) : __ldcs(p);
+}
+
+// G lanes of one warp share a row (G a power of two up to 32).  Lane l
+// reads the row's slots l, l + G, l + 2G, ... below its length, U of them
+// at a time: first their columns and values (G neighbouring lanes on
+// neighbouring addresses of each plane), then the gathers of x for every
+// component, then the sums; every operator and output component keeps its
+// own partial sum.  A fixed xor-shuffle tree adds the G lanes' partial
+// sums (every lane ends with the same bits), and lane a < d adds the
+// operators in the reference's order and writes y[a, row].
+template <typename T, int D, bool HAS_R, int G, int U, bool CACHED>
+__global__ void __launch_bounds__(kRowThreads)
+    ell_block_spmv_kernel(const int* __restrict__ cols,
+                          const T* __restrict__ A1, const T* __restrict__ Rv,
+                          const T* __restrict__ x, const T* __restrict__ y0,
+                          T* __restrict__ y, const int* __restrict__ row_len,
+                          int n_rows, int K, int n_cols) {
+  constexpr int P = HAS_R ? D * D : 1;    // reaction planes (1: unused)
+  const int lane = threadIdx.x & (G - 1);
+  const long long row =
+      (static_cast<long long>(blockIdx.x) * kRowThreads + threadIdx.x) / G;
+  const bool has_row = row < n_rows;
+  const int len =
+      has_row ? (row_len != nullptr ? __ldg(row_len + row) : K) : 0;
+  const long long base = row * K;
   const long long plane_len = static_cast<long long>(n_rows) * K;
 
-  const int r = threadIdx.x / G;   // row of the tile
-  const int a = threadIdx.x % G;   // component (a >= D: the idle lane)
-  const int ga = a < D ? a : 0;    // the component this lane gathers
-
-  Tile<T> st(smem, R, K);
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int row0 = tile * R;
-    const long long off = static_cast<long long>(row0) * K;
-    const int count = min(R, n_rows - row0) * K;
-    stage_plane(st.cols, cols + off, count);
-    stage_plane(st.plane(0), A1 + off, count);
-    if (HAS_R) {
+  T acc_a[D];
+  T acc_r[D][D];
 #pragma unroll
-      for (int p = 0; p < D * D; ++p)
-        stage_plane(st.plane(1 + p), Rv + p * plane_len + off, count);
+  for (int a = 0; a < D; ++a) {
+    acc_a[a] = T(0);
+#pragma unroll
+    for (int b = 0; b < D; ++b) acc_r[a][b] = T(0);
+  }
+  for (int k0 = lane; k0 < len; k0 += G * U) {
+    int c[U];
+    T va[U];
+    T vr[U][P];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int k = k0 + u * G;
+      const bool ok = k < len;
+      c[u] = ok ? load_entry<CACHED>(cols + base + k) : 0;
+      va[u] = ok ? load_entry<CACHED>(A1 + base + k) : T(0);
+      if (HAS_R) {
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          vr[u][p] =
+              ok ? load_entry<CACHED>(Rv + p * plane_len + base + k) : T(0);
+      }
     }
-    cp_async_commit();
-    cp_async_wait<0>();          // this thread's copies have landed,
-    __syncthreads();             // and every other thread's
-
-    // Every lane runs the slot loop, since the lanes of a row exchange
-    // their gathers; a lane without a row (ragged last tile) or without a
-    // component gathers x[., 0] and adds nothing.
-    const unsigned lanes = __activemask();
-    const int row = row0 + r;
-    const bool has_row = row < n_rows;
-    const bool live = has_row && a < D;
-    const int* sc = st.cols + shift_of(cols + off) + r * K;
-    const T* sa = st.plane(0) + shift_of(A1 + off) + r * K;
-    const T* sr[D];
+    T xs[U][D];
 #pragma unroll
-    for (int b = 0; b < D; ++b) {
-      const int p = HAS_R ? ga * D + b : 0;
-      sr[b] = HAS_R ? st.plane(1 + p) +
-                          shift_of(Rv + p * plane_len + off) + r * K
-                    : sa;
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int b = 0; b < D; ++b)
+        xs[u][b] = k0 + u * G < len
+                       ? __ldg(x + static_cast<long long>(b) * n_cols + c[u])
+                       : T(0);
     }
-    T acc_a = T(0);
-    T acc_r[D];
 #pragma unroll
-    for (int b = 0; b < D; ++b) acc_r[b] = T(0);
-    // kBatch slots at a time: first all their gathers, then the sums, so
-    // that a lane keeps kBatch loads of x in flight
-    constexpr int kBatch = 10;
-    const T* xg = x + static_cast<long long>(ga) * n_cols;
-    for (int k0 = 0; k0 < K; k0 += kBatch) {
-      T mine[kBatch];
+    for (int u = 0; u < U; ++u) {
+      if (k0 + u * G < len) {
 #pragma unroll
-      for (int u = 0; u < kBatch; ++u)
-        mine[u] = __ldg(xg + (has_row && k0 + u < K ? sc[k0 + u] : 0));
+        for (int a = 0; a < D; ++a) acc_a[a] += va[u] * xs[u][a];
+        if (HAS_R) {
 #pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        T xs[D];
+          for (int a = 0; a < D; ++a)
 #pragma unroll
-        for (int b = 0; b < D; ++b)
-          xs[b] = D == 1 ? mine[u] : __shfl_sync(lanes, mine[u], b, G);
-        if (live && k0 + u < K) {
-          const int k = k0 + u;
-          T xa = xs[0];
-#pragma unroll
-          for (int b = 1; b < D; ++b) xa = (a == b) ? xs[b] : xa;
-          acc_a += sa[k] * xa;
-          if (HAS_R) {
-#pragma unroll
-            for (int b = 0; b < D; ++b) acc_r[b] += sr[b][k] * xs[b];
-          }
+            for (int b = 0; b < D; ++b)
+              acc_r[a][b] += vr[u][HAS_R ? a * D + b : 0] * xs[u][b];
         }
       }
     }
-    if (live) {
-      const long long out = static_cast<long long>(a) * n_rows + row;
-      T sum = acc_a;
-      if (y0 != nullptr) sum += y0[out];
+  }
+  // every lane of the warp gets here (rows past n_rows with length 0)
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) {
+#pragma unroll
+    for (int a = 0; a < D; ++a) {
+      acc_a[a] += __shfl_xor_sync(0xffffffffu, acc_a[a], off);
       if (HAS_R) {
 #pragma unroll
-        for (int b = 0; b < D; ++b) sum += acc_r[b];
+        for (int b = 0; b < D; ++b)
+          acc_r[a][b] += __shfl_xor_sync(0xffffffffu, acc_r[a][b], off);
       }
-      y[out] = sum;
     }
-    __syncthreads();             // the tile may be overwritten now
+  }
+  if (has_row && lane < D) {
+    T sum = acc_a[0];
+#pragma unroll
+    for (int a = 1; a < D; ++a) sum = lane == a ? acc_a[a] : sum;
+    const long long out = static_cast<long long>(lane) * n_rows + row;
+    if (y0 != nullptr) sum += y0[out];
+    if (HAS_R) {
+#pragma unroll
+      for (int b = 0; b < D; ++b) {
+        T r = acc_r[0][b];
+#pragma unroll
+        for (int a = 1; a < D; ++a) r = lane == a ? acc_r[a][b] : r;
+        sum += r;
+      }
+    }
+    y[out] = sum;
   }
 }
 
@@ -342,10 +378,9 @@ int sm_count() {
 }
 
 template <typename T>
-size_t tile_bytes(int rows, int K, int planes) {
+size_t tile_bytes(int rows, int K) {
   return plane_capacity<int>(rows * K) * sizeof(int) +
-         static_cast<size_t>(planes) * plane_capacity<T>(rows * K) *
-             sizeof(T);
+         plane_capacity<T>(rows * K) * sizeof(T);
 }
 
 struct Geometry {
@@ -354,19 +389,19 @@ struct Geometry {
   size_t smem;   // dynamic shared memory of a block
 };
 
-// Tile height and grid: see the header.  `tpr` threads work on one row.
+// Tile height and grid of the single product: see the header.
 template <typename T>
-Geometry geometry(int n_rows, int K, int planes, int tpr) {
+Geometry geometry(int n_rows, int K) {
   const int sms = sm_count();
   Geometry g{0, 0, 0};
   for (int rows = kRowsMax; rows >= 4; rows /= 2) {
-    const size_t smem = tile_bytes<T>(rows, K, planes);
+    const size_t smem = tile_bytes<T>(rows, K);
     const int tiles = (n_rows + rows - 1) / rows;
     const bool roomy = smem <= kSmemFourBlocks && tiles >= kTilesPerSm * sms;
     if (rows > 32 ? !roomy : smem > kSmemMax) continue;
     int per_sm = static_cast<int>((kSmemMax + 1024) / (smem + 1024));
     per_sm = per_sm < 1 ? 1 : per_sm;
-    const int by_threads = 2048 / (rows * tpr);
+    const int by_threads = 2048 / rows;
     if (per_sm > by_threads) per_sm = by_threads < 1 ? 1 : by_threads;
     if (per_sm > 32) per_sm = 32;
     // as few tiles per block as the resident blocks allow, spread evenly
@@ -398,7 +433,7 @@ cudaError_t prepare(Kernel kernel, bool* ready) {
 template <typename T, int NRHS>
 int launch(const int* cols, const T* vals, const T* x, T* y, int n_rows,
            int K, cudaStream_t stream) {
-  const Geometry g = geometry<T>(n_rows, K, 1, 1);
+  const Geometry g = geometry<T>(n_rows, K);
   if (g.rows == 0) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = ell_spmv_kernel<T, NRHS>;
   static bool ready = false;
@@ -431,26 +466,36 @@ int dispatch(const void* cols, const void* vals, const void* x, void* y,
   }
 }
 
+template <typename T, int D, bool HAS_R, int G, int U, bool CACHED>
+int launch_rows(const int* cols, const T* A1, const T* Rv, const T* x,
+                const T* y0, T* y, const int* row_len, int n_rows, int K,
+                int n_cols, cudaStream_t stream) {
+  const long long threads = static_cast<long long>(n_rows) * G;
+  const int grid =
+      static_cast<int>((threads + kRowThreads - 1) / kRowThreads);
+  ell_block_spmv_kernel<T, D, HAS_R, G, U, CACHED>
+      <<<grid, kRowThreads, 0, stream>>>(cols, A1, Rv, x, y0, y, row_len,
+                                         n_rows, K, n_cols);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int D, bool HAS_R>
 int launch_block(const int* cols, const T* A1, const T* Rv, const T* x,
-                 const T* y0, T* y, int n_rows, int K, int n_cols,
-                 cudaStream_t stream) {
-  constexpr int G = RowLanes<D>::value;
-  const Geometry g = geometry<T>(n_rows, K, HAS_R ? 1 + D * D : 1, G);
-  if (g.rows == 0) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = ell_block_spmv_kernel<T, D, HAS_R>;
-  static bool ready = false;
-  const cudaError_t rc = prepare(kernel, &ready);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  kernel<<<g.grid, g.rows * G, g.smem, stream>>>(cols, A1, Rv, x, y0, y,
-                                                 n_rows, K, n_cols);
-  return static_cast<int>(cudaGetLastError());
+                 const T* y0, T* y, const int* row_len, int n_rows, int K,
+                 int n_cols, cudaStream_t stream) {
+  // the geometry from the row width and R: see the header
+  if (K > 32)
+    return launch_rows<T, D, HAS_R, 16, 2, false>(
+        cols, A1, Rv, x, y0, y, row_len, n_rows, K, n_cols, stream);
+  return launch_rows<T, D, HAS_R, 8, HAS_R ? 1 : 2, HAS_R>(
+      cols, A1, Rv, x, y0, y, row_len, n_rows, K, n_cols, stream);
 }
 
 template <typename T>
 int dispatch_block(const void* cols, const void* A1, const void* Rv,
-                   const void* x, const void* y0, void* y, int n_rows, int K,
-                   int n_cols, int d, void* stream) {
+                   const void* x, const void* y0, void* y,
+                   const void* row_len, int n_rows, int K, int n_cols, int d,
+                   void* stream) {
   if (n_rows < 0 || K < 1 || n_cols < 1 || d < 1 || d > kMaxDim)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows == 0) return 0;
@@ -460,14 +505,15 @@ int dispatch_block(const void* cols, const void* A1, const void* Rv,
   const T* xx = static_cast<const T*>(x);
   const T* yz = static_cast<const T*>(y0);
   T* yy = static_cast<T*>(y);
+  const int* len = static_cast<const int*>(row_len);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FENAPACK_BLOCK(D)                                                    \
   case D:                                                                    \
     return r != nullptr                                                      \
-               ? launch_block<T, D, true>(c, a, r, xx, yz, yy, n_rows, K,    \
-                                          n_cols, s)                         \
-               : launch_block<T, D, false>(c, a, r, xx, yz, yy, n_rows, K,   \
-                                           n_cols, s);
+               ? launch_block<T, D, true>(c, a, r, xx, yz, yy, len, n_rows,  \
+                                          K, n_cols, s)                      \
+               : launch_block<T, D, false>(c, a, r, xx, yz, yy, len, n_rows, \
+                                           K, n_cols, s);
   switch (d) {
     FENAPACK_BLOCK(1)
     FENAPACK_BLOCK(2)
@@ -481,7 +527,8 @@ int dispatch_block(const void* cols, const void* A1, const void* Rv,
 
 // Plain C entry points (loaded with ctypes).  Each returns the CUDA error
 // code of its launch (cudaGetLastError() after it): 0 when the launch was
-// accepted.  Rv and y0 may be null.
+// accepted.  Rv, y0 and row_len may be null (no row_len: every row is K
+// long).
 extern "C" int ell_spmv_f32(const void* cols, const void* vals,
                             const void* x, void* y, int n_rows, int K,
                             int nrhs, void* stream) {
@@ -496,16 +543,18 @@ extern "C" int ell_spmv_f64(const void* cols, const void* vals,
 
 extern "C" int ell_block_spmv_f32(const void* cols, const void* A1,
                                   const void* Rv, const void* x,
-                                  const void* y0, void* y, int n_rows, int K,
+                                  const void* y0, void* y,
+                                  const void* row_len, int n_rows, int K,
                                   int n_cols, int d, void* stream) {
-  return dispatch_block<float>(cols, A1, Rv, x, y0, y, n_rows, K, n_cols, d,
-                               stream);
+  return dispatch_block<float>(cols, A1, Rv, x, y0, y, row_len, n_rows, K,
+                               n_cols, d, stream);
 }
 
 extern "C" int ell_block_spmv_f64(const void* cols, const void* A1,
                                   const void* Rv, const void* x,
-                                  const void* y0, void* y, int n_rows, int K,
+                                  const void* y0, void* y,
+                                  const void* row_len, int n_rows, int K,
                                   int n_cols, int d, void* stream) {
-  return dispatch_block<double>(cols, A1, Rv, x, y0, y, n_rows, K, n_cols, d,
-                                stream);
+  return dispatch_block<double>(cols, A1, Rv, x, y0, y, row_len, n_rows, K,
+                                n_cols, d, stream);
 }

@@ -104,33 +104,34 @@ def ell_bytes(vals: torch.Tensor, n_cols: int, nrhs: int = 1) -> int:
     return vals.numel() * (isz + 4) + (n_cols + vals.shape[0]) * nrhs * isz
 
 
+def ell_entries(A1: torch.Tensor, row_len=None) -> int:
+    """Slots of an ELL product that hold entries: ``sum(row_len)`` (read
+    from the device once per version of the tensor), or every slot of
+    ``A1`` when there are no row lengths."""
+    if row_len is None:
+        return A1.numel()
+    from .ops.ell_spmv import length_stats
+    return length_stats(row_len)[2]
+
+
 def ell_block_bytes(A1: torch.Tensor, R, d: int, n_cols: int,
-                    y0: bool = False) -> int:
-    """Bytes the ELL block product must move: the int32 columns once, A1
-    and (when given) the d*d planes of R once each, the d components of x,
-    y and (when given) y0."""
+                    y0: bool = False, row_len=None) -> int:
+    """Bytes the ELL block product must move: an int32 column and the value
+    of A1 and (when given) of each of the d*d planes of R for every entry,
+    the d components of x, y and (when given) y0.  With ``row_len`` the
+    entries are each row's own (the padding after them is not needed),
+    else every slot."""
     isz = A1.element_size()
     planes = 1 + (0 if R is None else d * d)
-    return (A1.numel() * (4 + planes * isz)
+    return (ell_entries(A1, row_len) * (4 + planes * isz)
             + d * (n_cols + (2 if y0 else 1) * A1.shape[0]) * isz)
 
 
-def ell_block_nnz_bytes(pattern, A1: torch.Tensor, R, d: int) -> int:
-    """Bytes of the same block product in a layout without padding: the
-    pattern's own entries (an int32 column and each value plane once), x
-    and y; beside :func:`ell_block_bytes` it shows what the padding of the
-    ELL rows costs."""
-    isz = A1.element_size()
-    planes = 1 + (0 if R is None else d * d)
-    return (pattern.nnz * (4 + planes * isz)
-            + d * (pattern.n_cols + pattern.n_rows) * isz)
-
-
-def ell_block_flops(A1: torch.Tensor, R, d: int) -> int:
-    """Operations of the ELL block product: every slot of A1 serves d
-    components, every slot of R one (padding slots included, as in the
-    bytes)."""
-    return 2 * A1.numel() * (d + (0 if R is None else d * d))
+def ell_block_flops(A1: torch.Tensor, R, d: int, row_len=None) -> int:
+    """Operations of the ELL block product: every entry of A1 serves d
+    components, every entry of R one (every slot without ``row_len``, as
+    in the bytes)."""
+    return 2 * ell_entries(A1, row_len) * (d + (0 if R is None else d * d))
 
 
 def bsr_bytes(nbr: torch.Tensor, tiles: torch.Tensor, n_rows: int,

@@ -12,7 +12,10 @@ hold column 0 and value 0).  Two entry points:
     array, ``y[a] = A1 x[a] + sum_b R[a, b] x[b]`` for the d components
     of a vector field: what the reference composes from ``ELL.mv`` calls
     in its Newton and Picard velocity matvecs, here one pass that reads
-    the columns once and each of the 1 + d*d value planes once.
+    the columns once and each of the 1 + d*d value planes once.  Given
+    each row's entry count (``row_len``, which the patterns of
+    :mod:`.sparse` carry), it reads a row's own entries and none of the
+    padding after them.
 
 Both take the plain PyTorch version only for tensors on the CPU.  For a
 CUDA tensor they launch the kernel or raise; nothing falls back.  The
@@ -24,6 +27,7 @@ import ctypes
 from typing import Optional
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from . import kernels
 
@@ -49,7 +53,7 @@ def reset_launches():
 _ARGTYPES = {
     "ell_spmv": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                 + [ctypes.c_void_p],
-    "ell_block_spmv": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+    "ell_block_spmv": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                       + [ctypes.c_void_p],
 }
 _fns = {}
@@ -144,6 +148,41 @@ def ell_block_spmv_plain(cols: torch.Tensor, A1: torch.Tensor,
     return torch.stack(ys)
 
 
+# (version, smallest, largest, sum) of each row_len tensor read so far:
+# read again only after the tensor is changed, so that a product on the
+# card does not wait for the device to check lengths it has seen
+_length_stats = WeakIdKeyDictionary()
+
+
+def length_stats(row_len: torch.Tensor):
+    """``(smallest, largest, sum)`` of a row-length tensor, read from the
+    device once per version of the tensor."""
+    seen = _length_stats.get(row_len)
+    if seen is None or seen[0] != row_len._version:
+        stats = ((0, 0, 0) if row_len.numel() == 0 else tuple(
+            int(v) for v in torch.stack([row_len.min().long(),
+                                         row_len.max().long(),
+                                         row_len.sum()]).tolist()))
+        seen = (row_len._version,) + stats
+        _length_stats[row_len] = seen
+    return seen[1:]
+
+
+def _check_lengths(row_len, cols):
+    if row_len.dtype != torch.int32:
+        raise TypeError(f"row_len must be int32, got {row_len.dtype}")
+    if row_len.device != cols.device:
+        raise ValueError(f"row_len lies on {row_len.device}, cols on "
+                         f"{cols.device}")
+    if row_len.shape != cols.shape[:1] or not row_len.is_contiguous():
+        raise ValueError(f"row_len must be a contiguous ({cols.shape[0]},) "
+                         f"tensor, got {tuple(row_len.shape)}")
+    lo, hi, _ = length_stats(row_len)
+    if lo < 0 or hi > cols.shape[1]:
+        raise ValueError(f"row lengths must lie in 0..{cols.shape[1]}, got "
+                         f"{lo}..{hi}")
+
+
 def _check_block(cols, A1, R, x, n_cols, y0):
     if cols.dim() != 2 or A1.shape != cols.shape:
         raise ValueError(f"expected cols and A1 of one (n_rows, K) shape, "
@@ -174,7 +213,8 @@ def _check_block(cols, A1, R, x, n_cols, y0):
 
 def ell_block_spmv(cols: torch.Tensor, A1: torch.Tensor,
                    R: Optional[torch.Tensor], x: torch.Tensor, n_cols: int,
-                   y0: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   y0: Optional[torch.Tensor] = None,
+                   row_len: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``y[a] = A1 x[a] + y0[a] + sum_b R[a, b] x[b]`` for ``a < d``.
 
     ``A1`` (n_rows, K) and the d*d planes of ``R`` (d, d, n_rows, K) share
@@ -183,9 +223,14 @@ def ell_block_spmv(cols: torch.Tensor, A1: torch.Tensor,
     is (d, n_rows) in the same order.  ``R`` may be None (Picard: one pass
     over A1 serves every component), and so may ``y0`` (d, n_rows), a term
     added between A1's product and the reaction products.  d is 1 to
-    MAX_DIM.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel."""
+    MAX_DIM.  ``row_len`` (n_rows,) int32, each row's entry count in 0..K,
+    says that the slots past it are padding (column 0, value 0), which the
+    kernel then does not read; None means every row is K long.  CPU tensors
+    take the plain version (padding adds zero: the lengths change nothing
+    there); CUDA tensors launch the kernel."""
     _check_block(cols, A1, R, x, n_cols, y0)
+    if row_len is not None:
+        _check_lengths(row_len, cols)
     if x.device.type == "cpu":
         return ell_block_spmv_plain(cols, A1, R, x, n_cols, y0)
     if x.device.type != "cuda":
@@ -197,7 +242,8 @@ def ell_block_spmv(cols: torch.Tensor, A1: torch.Tensor,
     rc = _kernel("ell_block_spmv", name)(
         cols.data_ptr(), A1.data_ptr(), None if R is None else R.data_ptr(),
         x.data_ptr(), None if y0 is None else y0.data_ptr(), y.data_ptr(),
-        n_rows, K, n_cols, d, stream)
+        None if row_len is None else row_len.data_ptr(), n_rows, K, n_cols,
+        d, stream)
     if rc != 0:
         raise RuntimeError(f"ell_block_spmv_{name} launch failed: CUDA "
                            f"error {rc}")

@@ -11,7 +11,8 @@ run and on every device).  Two layouts share one interface
     of :mod:`fenapack_tpu_torch.ops.ell_spmv` (K3).  :class:`ELLBlock`
     (``pattern.block_matrix(A1vals, Rvals)``) is the velocity block of d
     components whose operators share the pattern, applied in one pass by
-    the same module's block product.
+    the same module's block product, which reads each row's own entries
+    only (the pattern's ``row_len``).
   * :class:`BlockSparsityPattern` / :class:`BlockELL`: block-sparse rows
     (BSR) of dense ``b x b`` tiles stored flat,
     ``tiles[I, i, j*b + c] = A[I*b + i, nbr[I, j]*b + c]``.  Its product is
@@ -96,17 +97,21 @@ class SegmentSum:
 
 class ELL:
     """ELL sparse matrix: ``cols`` (n_rows, K) int32, ``vals`` same shape.
-    Padded slots have ``col = 0`` and ``val = 0``."""
+    Padded slots have ``col = 0`` and ``val = 0``; they follow a row's own
+    entries, of which ``row_len`` (n_rows,) int32 holds the count when the
+    pattern is known (None: every row is K long)."""
 
-    def __init__(self, cols: torch.Tensor, vals: torch.Tensor, n_cols: int):
+    def __init__(self, cols: torch.Tensor, vals: torch.Tensor, n_cols: int,
+                 row_len: Optional[torch.Tensor] = None):
         self.cols, self.vals, self.n_cols = cols, vals, n_cols
+        self.row_len = row_len
 
     @property
     def shape(self):
         return (self.cols.shape[0], self.n_cols)
 
     def with_vals(self, vals: torch.Tensor) -> "ELL":
-        return ELL(self.cols, vals, self.n_cols)
+        return ELL(self.cols, vals, self.n_cols, self.row_len)
 
     def mv(self, x: torch.Tensor) -> torch.Tensor:
         """y = A @ x for x of shape (n_cols,) or (n_cols, k)."""
@@ -122,17 +127,21 @@ class ELL:
 class ELLBlock:
     """The velocity block over one ELL pattern: ``A1`` (n_rows, K) on every
     component's diagonal plus, when given, the reaction blocks ``R``
-    (d, d, n_rows, K), all over the column array ``cols``."""
+    (d, d, n_rows, K), all over the column array ``cols`` whose rows hold
+    ``row_len`` entries each (None: K)."""
 
     def __init__(self, cols: torch.Tensor, A1: torch.Tensor,
-                 R: Optional[torch.Tensor], n_cols: int):
+                 R: Optional[torch.Tensor], n_cols: int,
+                 row_len: Optional[torch.Tensor] = None):
         self.cols, self.A1, self.R, self.n_cols = cols, A1, R, n_cols
+        self.row_len = row_len
 
     def mv(self, x: torch.Tensor,
            y0: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``y[a] = A1 x[a] + y0[a] + sum_b R[a, b] x[b]`` for x of shape
         (d, n_cols): (d, n_rows), the components in the order of x."""
-        return ell_block_spmv(self.cols, self.A1, self.R, x, self.n_cols, y0)
+        return ell_block_spmv(self.cols, self.A1, self.R, x, self.n_cols, y0,
+                              row_len=self.row_len)
 
 
 class BlockELL:
@@ -223,25 +232,29 @@ class SparsityPattern:
         self.value_shape = (self.n_rows, K)
         ell_cols = np.zeros((self.n_rows, K), dtype=np.int32)
         ell_cols.reshape(-1)[self._upos] = ucol
-        self._set_cols(ell_cols)
+        self._set_cols(ell_cols, counts)
 
-    def _set_cols(self, ell_cols):
+    def _set_cols(self, ell_cols, counts):
+        """The column array and ``row_len``, each row's entry count (its
+        slots past that hold column 0 and, once assembled, value 0)."""
         self._ell_cols_np = ell_cols
         self.cols = torch.as_tensor(ell_cols, dtype=torch.int32,
                                     device=self.device)
+        self.row_len = torch.as_tensor(counts.astype(np.int32),
+                                       device=self.device)
 
     @property
     def value_size(self) -> int:
         return int(np.prod(self.value_shape))
 
     def matrix(self, vals: torch.Tensor):
-        return ELL(self.cols, vals, self.n_cols)
+        return ELL(self.cols, vals, self.n_cols, self.row_len)
 
     def block_matrix(self, A1vals: torch.Tensor,
                      Rvals: Optional[torch.Tensor] = None):
         """The velocity block ``A1`` per component plus the reaction blocks
         ``Rvals`` (d, d, n_rows, K) or None, all over this pattern."""
-        return ELLBlock(self.cols, A1vals, Rvals, self.n_cols)
+        return ELLBlock(self.cols, A1vals, Rvals, self.n_cols, self.row_len)
 
     def assemble_values(self, element_values: torch.Tensor) -> torch.Tensor:
         """Sum flat element-tensor values into a value array, each slot's
@@ -314,7 +327,9 @@ class SparsityPattern:
     def _restore_layout(self, d, block):
         self.K = int(d["K"])
         self.value_shape = (self.n_rows, self.K)
-        self._set_cols(d["ell_cols"])
+        # the row lengths are not stored: they are the entries per row
+        self._set_cols(d["ell_cols"],
+                       np.bincount(self._urow, minlength=self.n_rows))
 
 
 class BlockSparsityPattern(SparsityPattern):

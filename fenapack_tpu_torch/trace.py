@@ -25,8 +25,9 @@ events per FGMRES iteration, the device time of the heaviest kernels by
 name, and per SpMV kernel (``ell_f64``, ``ell_block_f64``, ``bsr_f32``,
 ...) the launches in the profiled solve, their device time, their bound
 (the bytes each launch must move over the HBM rate, or its operations over
-the peak rate if that is longer, summed over the launches) and the device
-time above that bound, also split by the operator's row count
+the peak rate if that is longer, summed over the launches; a block product
+given row lengths counts its rows' own entries, not the padding) and the
+device time above that bound, also split by the operator's row count
 (``by_rows``: the i-th launch the operators made is paired with the i-th
 device event of that kernel; one stream keeps the order).  It needs a CUDA
 device: every time is a device measurement.
@@ -81,12 +82,13 @@ def _bounds():
                   measure.ell_bytes(vals, n_cols, k), 2 * vals.numel() * k)
         return ell(cols, vals, x, n_cols)
 
-    def blk_tallied(cols, A1, R, x, n_cols, y0=None):
+    def blk_tallied(cols, A1, R, x, n_cols, y0=None, row_len=None):
         d = x.shape[0]
         tally.add("ell_block", A1, A1.shape[0],
-                  measure.ell_block_bytes(A1, R, d, n_cols, y0 is not None),
-                  measure.ell_block_flops(A1, R, d))
-        return blk(cols, A1, R, x, n_cols, y0)
+                  measure.ell_block_bytes(A1, R, d, n_cols, y0 is not None,
+                                          row_len),
+                  measure.ell_block_flops(A1, R, d, row_len))
+        return blk(cols, A1, R, x, n_cols, y0, row_len=row_len)
 
     def bsr_tallied(nbr, tiles, x, n_rows, n_cols):
         k = 1 if x.dim() == 1 else x.shape[1]

@@ -430,17 +430,19 @@ def test_block_kernel_raises_instead_of_falling_back(cuda):
         K.ell_block_spmv(cols.cpu(), A1, R, x, nc)
     with pytest.raises(ValueError):
         K.ell_block_spmv(cols, A1, R, x, nc, y0.cpu())
-    # a row too wide for any tile to fit in shared memory: the launch is
-    # refused and the wrapper raises, it does not take the plain version
+    # a row too wide for any tile of the single product to fit in shared
+    # memory: the launch is refused and the wrapper raises, it does not
+    # take the plain version; the block product stages no tile and takes
+    # such rows
     wide = 30000
     c = torch.zeros(4, wide, dtype=torch.int32, device=cuda)
     v = torch.ones(4, wide, dtype=torch.float32, device=cuda)
-    before = dict(K.block_launches)
-    with pytest.raises(RuntimeError):
-        K.ell_block_spmv(c, v, None, torch.ones(2, 4, device=cuda), 4)
+    before = dict(K.launches)
     with pytest.raises(RuntimeError):
         K.ell_spmv(c, v, torch.ones(4, device=cuda), 4)
-    assert K.block_launches == before
+    assert K.launches == before
+    y = K.ell_block_spmv(c, v, None, torch.ones(2, 4, device=cuda), 4)
+    assert torch.equal(y, torch.full((2, 4), float(wide), device=cuda))
 
 
 def test_each_source_builds_into_its_own_library(monkeypatch):
@@ -460,20 +462,27 @@ def test_each_source_builds_into_its_own_library(monkeypatch):
 def test_trace_sums_the_bound_of_each_product():
     """``trace`` tallies, per kernel, the launches of the products the
     operators make and their bound (bytes over the HBM rate: the block
-    product's whole-product bytes, columns once and every plane once), keeps
-    each launch's row count for the split by rows, and maps the kernels'
-    device events to the same names."""
+    product's whole-product bytes, columns once and every plane once, of
+    every slot or, given row lengths, of the rows' own entries), keeps each
+    launch's row count for the split by rows, and maps the kernels' device
+    events to the same names."""
     from fenapack_tpu_torch import measure, trace
     from fenapack_tpu_torch.ops import sparse
     cols, vals, nc = _random_ell(torch.float64, "cpu")
     ell, mv, bmv = ELL(cols, vals, nc), sparse.ell_spmv, sparse.ell_block_spmv
     bcols, A1, R, xb, y0 = _random_block(torch.float64, "cpu", 2, True,
                                          n=40, n_cols=40)
+    # rows of 0..6 of the 7 slots, the padding zero as the layout has it
+    lens = torch.arange(40, dtype=torch.int32) % 7
+    pad = torch.arange(7)[None, :] >= lens[:, None]
+    A1p, Rp = A1.masked_fill(pad, 0.0), R.masked_fill(pad, 0.0)
     with trace._bounds() as tally:
         ell.mv(torch.randn(nc, dtype=torch.float64))
         ell.mv(torch.randn(nc, 2, dtype=torch.float64))
         ELLBlock(bcols, A1, R, 40).mv(xb)
         ELLBlock(bcols, A1, None, 40).mv(xb, y0)
+        y = ELLBlock(bcols, A1p, Rp, 40, lens).mv(xb)
+    assert torch.equal(y, K.ell_block_spmv_plain(bcols, A1p, Rp, xb, 40))
     assert sparse.ell_spmv is mv and sparse.ell_block_spmv is bmv
     one, two = (measure.ell_bytes(vals, nc, k) / measure.HBM_BPS
                 for k in (1, 2))
@@ -483,11 +492,14 @@ def test_trace_sums_the_bound_of_each_product():
     # cols once, A1 + 4 planes of R, 2 components of x and y (and y0)
     newton = 40 * 7 * (4 + 5 * 8) + 2 * (40 + 40) * 8
     picard = 40 * 7 * (4 + 8) + 2 * (40 + 2 * 40) * 8
+    entries = int(lens.sum())                  # 115 of the 280 slots
+    ragged = entries * (4 + 5 * 8) + 2 * (40 + 40) * 8
     assert measure.ell_block_bytes(A1, R, 2, 40) == newton
     assert measure.ell_block_bytes(A1, None, 2, 40, y0=True) == picard
-    assert tally["ell_block_f64"][0] == 2
+    assert measure.ell_block_bytes(A1p, Rp, 2, 40, row_len=lens) == ragged
+    assert tally["ell_block_f64"][0] == 3
     assert tally["ell_block_f64"][1] == pytest.approx(
-        (newton + picard) / measure.HBM_BPS, rel=1e-12)
+        (newton + picard + ragged) / measure.HBM_BPS, rel=1e-12)
     # the split by rows pairs the i-th launch with the i-th device event
     each = tally.each["ell_f64"]
     assert [n for n, _ in each] == [300, 300]

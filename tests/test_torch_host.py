@@ -180,7 +180,8 @@ def test_import_does_not_load_jax():
             "fenapack_tpu_torch.parallel.spmd, "
             "fenapack_tpu_torch.parallel.spmd_gmg, "
             "fenapack_tpu_torch.parallel.spmd_pcd, "
-            "fenapack_tpu_torch.spmd_demo, fenapack_tpu_torch.cavity\n"
+            "fenapack_tpu_torch.spmd_demo, fenapack_tpu_torch.cavity, "
+            "fenapack_tpu_torch.ell_ab\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('fenapack_tpu.') "
             "or m == 'fenapack_tpu')\n"
