@@ -1,5 +1,6 @@
 """Measurement helpers for runs on one CUDA GPU (``chip_smoke.py``,
 ``trace.py`` and the entry points' launch lines): kernel launch counts,
+the solve path's host-sync and true-residual counts,
 kernel timing by CUDA events, the device events of a
 profile, the least time the card could take for a product, and the
 cuSPARSE products that serve as yardsticks beside the hand-written kernels.
@@ -25,6 +26,14 @@ def launch_counts() -> dict:
     return {"bsr_spmv": dict(bsr_spmv.launches),
             "ell_spmv": dict(ell_spmv.launches),
             "ell_block_spmv": dict(ell_spmv.block_launches)}
+
+
+def host_counts() -> dict:
+    """The solve path's counters of this process (``host_syncs``,
+    ``true_residuals``: :data:`..utils.timing.counts`), counted on every
+    device."""
+    from .utils import timing
+    return dict(timing.counts)
 
 
 def cuda_ms(fn, reps: int = 7, inner: int = 20) -> float:

@@ -39,6 +39,7 @@ import torch
 
 from .bsr_spmv import bsr_spmv
 from .ell_spmv import ell_block_spmv, ell_spmv
+from ..utils.timing import span
 
 
 class SegmentSum:
@@ -115,7 +116,9 @@ class ELL:
 
     def mv(self, x: torch.Tensor) -> torch.Tensor:
         """y = A @ x for x of shape (n_cols,) or (n_cols, k)."""
-        return ell_spmv(self.cols, self.vals, x.contiguous(), self.n_cols)
+        with span("spmv.ell"):
+            return ell_spmv(self.cols, self.vals, x.contiguous(),
+                            self.n_cols)
 
     def row_sums(self) -> torch.Tensor:
         return torch.sum(self.vals, dim=1)
@@ -140,8 +143,9 @@ class ELLBlock:
            y0: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``y[a] = A1 x[a] + y0[a] + sum_b R[a, b] x[b]`` for x of shape
         (d, n_cols): (d, n_rows), the components in the order of x."""
-        return ell_block_spmv(self.cols, self.A1, self.R, x, self.n_cols, y0,
-                              row_len=self.row_len)
+        with span("spmv.ell_block"):
+            return ell_block_spmv(self.cols, self.A1, self.R, x,
+                                  self.n_cols, y0, row_len=self.row_len)
 
 
 class BlockELL:
@@ -167,8 +171,9 @@ class BlockELL:
 
     def mv(self, x: torch.Tensor) -> torch.Tensor:
         """y = A @ x for x of shape (n_cols,) or (n_cols, k)."""
-        return bsr_spmv(self.nbr, self.tiles, x.contiguous(), self.n_rows,
-                        self.n_cols)
+        with span("spmv.bsr"):
+            return bsr_spmv(self.nbr, self.tiles, x.contiguous(),
+                            self.n_rows, self.n_cols)
 
     def row_sums(self) -> torch.Tensor:
         return torch.sum(self.tiles, dim=2).reshape(-1)[:self.n_rows]

@@ -15,6 +15,8 @@ from typing import Callable
 
 import torch
 
+from ..utils.timing import span
+
 
 def make_fieldsplit_upper(n_u: int, a_solve: Callable, schur_solve: Callable,
                           bt_mv: Callable, free_u: torch.Tensor) -> Callable:
@@ -23,8 +25,11 @@ def make_fieldsplit_upper(n_u: int, a_solve: Callable, schur_solve: Callable,
     B^T, ``free_u`` masks free velocity dofs (0 at Dirichlet dofs)."""
     def apply(r: torch.Tensor) -> torch.Tensor:
         r_u, r_p = r[:n_u], r[n_u:]
-        z_p = schur_solve(r_p)
-        rhs = free_u * (r_u - bt_mv(z_p))
-        z_u = free_u * a_solve(rhs) + (1.0 - free_u) * r_u
+        with span("pc.pcd"):
+            z_p = schur_solve(r_p)
+        with span("pc.bt"):
+            rhs = free_u * (r_u - bt_mv(z_p))
+        with span("pc.velocity"):
+            z_u = free_u * a_solve(rhs) + (1.0 - free_u) * r_u
         return torch.cat([z_u, z_p])
     return apply

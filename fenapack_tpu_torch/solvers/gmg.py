@@ -50,6 +50,7 @@ from ..ops import subsolve
 from ..ops.sparse import ELL, BlockSparsityPattern, SparsityPattern
 from .config import MultigridConfig, VelocityConfig
 from ..ops.dist import LOCAL
+from ..utils import timing
 
 # Largest coarse system inverted densely (the JAX package's default
 # FENAPACK_GMG_DENSE_MAX).  Read at every build, so a test may lower it.
@@ -649,6 +650,7 @@ def velocity_gmg_values(vh: VelocityHierarchy, wind_fine: torch.Tensor,
         free0 = 1.0 - mask0
         A = free0[:, None] * A * free0[None, :] + torch.diag(mask0)
         coarse_inv = torch.linalg.inv(A)
+        timing.host_sync()          # inv reads its singularity check
     return {"levels": levels, "p1_vals": p1_vals, "coarse_inv": coarse_inv}
 
 

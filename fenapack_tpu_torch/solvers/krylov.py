@@ -14,7 +14,9 @@ restarts: ``maxiter`` is the Krylov dimension.
     Givens rotations, the residual estimate and the convergence and
     breakdown tests run in NumPy in the Krylov dtype.  That copy is the one
     host synchronisation of an iteration; ``FGMRESResult.host_syncs``
-    counts them.
+    counts every host wait of the solve (the counter of
+    :mod:`..utils.timing`): ``|b|``, one per iteration, and the copy of the
+    small solution ``y`` to the device.
   * The solve starts from x = 0.  Convergence is tested on the residual
     estimate ``|g[k+1]|`` against ``rtol * ||b||``; ``converged`` reports
     that test only, so a breakdown stop or the ``maxiter`` cap never passes
@@ -37,6 +39,7 @@ import torch
 from scipy.linalg import solve_triangular
 
 from ..ops.dist import LOCAL
+from ..utils import timing
 
 _EPS = {torch.float32: 6.0e-8, torch.float64: 2.3e-16}
 _NP = {torch.float32: np.float32, torch.float64: np.float64}
@@ -129,12 +132,21 @@ def fgmres_dr(matvec: Callable, pc: Callable, b: torch.Tensor,
 
 def _fgmres(matvec, pc, b, rec: Optional[RecycleSpace], maxiter: int,
             rtol: float, reorth_eta: float, dist=LOCAL, atol: float = 0.0):
+    with timing.span("fgmres"):
+        return _fgmres_spanned(matvec, pc, b, rec, maxiter, rtol,
+                               reorth_eta, dist, atol)
+
+
+def _fgmres_spanned(matvec, pc, b, rec, maxiter, rtol, reorth_eta, dist,
+                    atol):
     n, m = b.shape[0], maxiter
+    syncs0 = timing.counts["host_syncs"]
     dtype, dev = b.dtype, b.device
     npdt = _NP[dtype]
     r0 = b
     if rec is None:
         bnorm = beta = npdt(dist.norm(b).cpu())
+        timing.host_sync()
     elif dist.size > 1:
         raise NotImplementedError("GCRO-DR recycling runs on one device")
     else:
@@ -147,10 +159,10 @@ def _fgmres(matvec, pc, b, rec: Optional[RecycleSpace], maxiter: int,
         head = torch.cat([torch.stack([torch.linalg.norm(b),
                                        torch.linalg.norm(r0)]),
                           rec.valid]).cpu().numpy()
+        timing.host_sync()
         bnorm, beta, valid = npdt(head[0]), npdt(head[1]), head[2:]
         Bm = np.zeros((m, kr), dtype=npdt)          # C w per iteration
         Hm = np.zeros((m + 1, m), dtype=npdt)       # pre-rotation columns
-    syncs = 1
     tol = max(rtol * bnorm, atol)
 
     V = torch.zeros((m + 1, n), dtype=dtype, device=dev)
@@ -165,50 +177,57 @@ def _fgmres(matvec, pc, b, rec: Optional[RecycleSpace], maxiter: int,
     k = 0
     done = beta <= tol
     while k < m and not done:
-        z = pc(V[k])
-        w = matvec(z)
-        Z[k] = z
-        parts = []
-        if rec is not None:
-            bk = C @ w
-            w = w - C.T @ bk
-            parts = [bk]
-        Vk = V[:k + 1]
-        h1, wnorm_pre = dist.proj_norm(Vk, w)
-        w = w - Vk.T @ h1
-        if reorth_eta > 0.0:
-            h2, wnorm_mid = dist.proj_norm(Vk, w)
-            h2 = h2 * (wnorm_mid < reorth_eta * wnorm_pre)
-        else:
-            h2 = dist.proj(Vk, w)
-        w = w - Vk.T @ h2
-        wnorm = dist.norm(w)
-        V[k + 1] = w / torch.where(wnorm > 0, wnorm, torch.ones_like(wnorm))
-        col = torch.cat([h1 + h2, torch.stack([wnorm, wnorm_pre])] + parts)
-        col = col.cpu().numpy()
-        syncs += 1
-        h = np.zeros(m + 1, dtype=npdt)
-        h[:k + 1] = col[:k + 1]
-        h[k + 1] = col[k + 1]
-        wn, wn_pre = col[k + 1], col[k + 2]
-        if rec is not None:
-            Bm[k] = col[k + 3:]
-            Hm[:, k] = h
-        # (near-)breakdown: the new direction lies numerically in the span;
-        # normalizing it would inject amplified noise into the basis and
-        # decouple the estimate from the true residual.  Stop instead.
-        breakdown = wn <= 100.0 * _EPS[dtype] * wn_pre
-        _rotate(h, cs, sn, k)
-        denom = np.hypot(h[k], h[k + 1])
-        ck = h[k] / denom if denom > 0 else npdt(1.0)
-        sk = h[k + 1] / denom if denom > 0 else npdt(0.0)
-        cs[k], sn[k] = ck, sk
-        h[k], h[k + 1] = denom, 0.0
-        R[:, k] = h[:m]
-        res = abs(sk * g[k])
-        g[k + 1], g[k] = -sk * g[k], ck * g[k]
-        hist[k + 1] = res
-        done = res <= tol or breakdown
+        with timing.span("fgmres.iter"):
+            with timing.span("pc"):
+                z = pc(V[k])
+            with timing.span("fgmres.matvec"):
+                w = matvec(z)
+            Z[k] = z
+            parts = []
+            if rec is not None:
+                bk = C @ w
+                w = w - C.T @ bk
+                parts = [bk]
+            Vk = V[:k + 1]
+            h1, wnorm_pre = dist.proj_norm(Vk, w)
+            w = w - Vk.T @ h1
+            if reorth_eta > 0.0:
+                h2, wnorm_mid = dist.proj_norm(Vk, w)
+                h2 = h2 * (wnorm_mid < reorth_eta * wnorm_pre)
+            else:
+                h2 = dist.proj(Vk, w)
+            w = w - Vk.T @ h2
+            wnorm = dist.norm(w)
+            V[k + 1] = w / torch.where(wnorm > 0, wnorm,
+                                       torch.ones_like(wnorm))
+            col = torch.cat([h1 + h2, torch.stack([wnorm, wnorm_pre])]
+                            + parts)
+            with timing.span("fgmres.host"):
+                col = col.cpu().numpy()
+                timing.host_sync()
+                h = np.zeros(m + 1, dtype=npdt)
+                h[:k + 1] = col[:k + 1]
+                h[k + 1] = col[k + 1]
+                wn, wn_pre = col[k + 1], col[k + 2]
+                if rec is not None:
+                    Bm[k] = col[k + 3:]
+                    Hm[:, k] = h
+                # (near-)breakdown: the new direction lies numerically in
+                # the span; normalizing it would inject amplified noise
+                # into the basis and decouple the estimate from the true
+                # residual.  Stop instead.
+                breakdown = wn <= 100.0 * _EPS[dtype] * wn_pre
+                _rotate(h, cs, sn, k)
+                denom = np.hypot(h[k], h[k + 1])
+                ck = h[k] / denom if denom > 0 else npdt(1.0)
+                sk = h[k + 1] / denom if denom > 0 else npdt(0.0)
+                cs[k], sn[k] = ck, sk
+                h[k], h[k + 1] = denom, 0.0
+                R[:, k] = h[:m]
+                res = abs(sk * g[k])
+                g[k + 1], g[k] = -sk * g[k], ck * g[k]
+                hist[k + 1] = res
+                done = res <= tol or breakdown
         k += 1
 
     x = torch.zeros_like(b)
@@ -216,21 +235,22 @@ def _fgmres(matvec, pc, b, rec: Optional[RecycleSpace], maxiter: int,
     if k:
         y = solve_triangular(R[:k, :k], g[:k], lower=False).astype(npdt)
         x = Z[:k].T @ torch.as_tensor(y, device=dev)
+        timing.host_sync()
     hist[k + 1:] = hist[k]
+    if rec is not None:
+        x = x + U.T @ (c0 - torch.as_tensor(Bm[:k].T @ y, device=dev))
+        timing.host_sync()
+        # C-space correction passes: the reconstruction trusts C = A U,
+        # which holds to rounding only; each pass removes the C component
+        # of the true residual once more, for one matvec
+        for _ in range(2):
+            x = x + U.T @ (C @ (b - matvec(x)))
+        rec = _deflation_update(matvec, rec, valid, Z[:k], Bm[:k],
+                                Hm[:k + 1, :k])
     result = FGMRESResult(x=x, iters=k, resnorms=hist,
                           converged=bool(hist[m] <= tol), bnorm=float(bnorm),
-                          host_syncs=syncs)
-    if rec is None:
-        return result, None
-    x = x + U.T @ (c0 - torch.as_tensor(Bm[:k].T @ y, device=dev))
-    # C-space correction passes: the reconstruction trusts C = A U, which
-    # holds to rounding only; each pass removes the C component of the
-    # true residual once more, for one matvec
-    for _ in range(2):
-        x = x + U.T @ (C @ (b - matvec(x)))
-    rec_new = _deflation_update(matvec, rec, valid, Z[:k], Bm[:k],
-                                Hm[:k + 1, :k])
-    return result._replace(x=x), rec_new
+                          host_syncs=timing.counts["host_syncs"] - syncs0)
+    return result, rec
 
 
 def _deflation_update(matvec, rec: RecycleSpace, valid: np.ndarray, Z,
@@ -262,6 +282,7 @@ def _deflation_update(matvec, rec: RecycleSpace, valid: np.ndarray, Z,
                         device=rec.U.device)        # (kr, kr + k_it)
     Ut = W[:, :kr] @ rec.U + W[:, kr:] @ Z          # (kr, n)
     ok = torch.as_tensor(sel_ok, dtype=rec.U.dtype, device=rec.U.device)
+    timing.host_sync(2)
     # orthonormalize the span (invalid rows are zero and sorted last)
     Qu = torch.linalg.qr(Ut.T)[0] * ok[None, :]
     return refresh_recycle(matvec, RecycleSpace(

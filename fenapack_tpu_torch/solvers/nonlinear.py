@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..fem.dofmap import DirichletBC
+from ..utils import timing
 from .config import SolverConfig
 from .oseen import OseenSolver
 
@@ -47,7 +48,7 @@ class FullSolveResult:
     res: List[float]                # nonlinear residual norms, steps + 1
     converged: bool
     lin_rel: List[float]            # true relative residual of each solve
-    host_syncs: int                 # host reads of device values
+    host_syncs: int                 # host waits for the device (counted)
     # refinement rounds of each linear solve (1 under krylov.hi_krylov)
     rounds: List[int] = dataclasses.field(default_factory=list)
 
@@ -125,6 +126,7 @@ class NonlinearSolver:
         for _ in range(max_steps):
             F = self.residual_of(w)[0].to(o.dtype)
             rnorm = float(torch.linalg.norm(F))
+            timing.host_sync()
             res_hist.append(rnorm)
             if r0 is None:
                 r0 = rnorm if rnorm > 0 else 1.0
@@ -136,6 +138,7 @@ class NonlinearSolver:
             rn_hist.append(result.resnorms)
             lin_rel.append(float(torch.linalg.norm(-F - matvec(result.x)))
                            / max(result.bnorm, 1e-300))
+            timing.host_sync()
             dw = result.x
             if self.enclosed:
                 dw = torch.cat([dw[:n_u], o.zero_mean_p(dw[n_u:])])
@@ -186,61 +189,81 @@ class NonlinearSolver:
         n_u = self.n_u
 
         def full(w0: Optional[torch.Tensor] = None) -> FullSolveResult:
+            with timing.request():
+                return _full(w0)
+
+        def _full(w0):
             w = (self.initial_state() if w0 is None else w0).to(
                 self.asm.dtype)
             dev, dt_hi = w.device, w.dtype
             iters, res, lin_rel, rounds = [], [], [], []
-            syncs, r0, k, converged, rec = 0, 1.0, 0, False, None
+            r0, k, converged, rec = 1.0, 0, False, None
+            syncs0 = timing.counts["host_syncs"]
             if m >= 2:
                 Fh = torch.zeros((m, self.n), dtype=dt_hi, device=dev)
                 Gh = torch.zeros((m, self.n), dtype=dt_hi, device=dev)
                 hc = 0
             while k < max_steps:
-                F, rn = self.residual_of(w)
-                rn = float(rn)
-                syncs += 1
+                with timing.span("residual"):
+                    F, rn = self.residual_of(w)
+                    rn = float(rn)
+                    timing.host_sync()
                 if k == 0:
                     r0 = rn if rn > 0 else 1.0
                 res.append(rn)
                 if rn <= rtol * r0:
                     converged = True
                     break
-                x, it, rn_lin, lin, rec = ir(w[:n_u], -F, rec)
-                lin_rel.append(float(rn_lin) / max(lin.bnorm, 1e-300))
-                syncs += 1 + lin.host_syncs
-                iters.append(int(it))
-                rounds.append(lin.rounds)
-                g = w + damping * x
-                if m >= 2:
-                    Fh = torch.roll(Fh, -1, dims=0)
-                    Fh[-1] = x
-                    Gh = torch.roll(Gh, -1, dims=0)
-                    Gh[-1] = g
-                    hc = min(hc + 1, m)
-                    dF = Fh[1:] - Fh[:-1]
-                    dG = Gh[1:] - Gh[:-1]
-                    # only the newest hc-1 difference rows are real
-                    valid = np.arange(m - 1) >= (m - 1) - (hc - 1)
-                    G = (dF @ dF.T).cpu().numpy()
-                    cvec = (dF @ x).cpu().numpy()
-                    syncs += 1
-                    eye = np.eye(m - 1)
-                    G = np.where(np.outer(valid, valid), G, eye)
-                    cvec = np.where(valid, cvec, 0.0)
-                    lam = 1e-12 * max(np.trace(G), 1e-30)
-                    npf = np.float32 if fdt == torch.float32 else np.float64
-                    gam = np.linalg.solve((G + lam * eye).astype(npf),
-                                          cvec.astype(npf)).astype(np.float64)
-                    gam = np.where(valid, gam, 0.0)
-                    g = g - torch.as_tensor(gam, device=dev) @ dG
-                w = g
+                with timing.span("picard.step"):
+                    x, it, rn_lin, lin, rec = ir(w[:n_u], -F, rec)
+                    lin_rel.append(float(rn_lin) / max(lin.bnorm, 1e-300))
+                    timing.host_sync()
+                    iters.append(int(it))
+                    rounds.append(lin.rounds)
+                    g = w + damping * x
+                    if m >= 2:
+                        with timing.span("anderson"):
+                            Fh = torch.roll(Fh, -1, dims=0)
+                            Fh[-1] = x
+                            Gh = torch.roll(Gh, -1, dims=0)
+                            Gh[-1] = g
+                            hc = min(hc + 1, m)
+                            g = self._mix(Fh, Gh, hc, x, g, fdt)
+                    w = g
                 if callback is not None:
                     callback(k, rn, iters[-1], lin_rel[-1], w, rec)
                 k += 1
-            return FullSolveResult(w=w, steps=k, iters=iters, res=res,
-                                   converged=converged, lin_rel=lin_rel,
-                                   host_syncs=syncs, rounds=rounds)
+            return FullSolveResult(
+                w=w, steps=k, iters=iters, res=res, converged=converged,
+                lin_rel=lin_rel,
+                host_syncs=timing.counts["host_syncs"] - syncs0,
+                rounds=rounds)
         return full
+
+    @staticmethod
+    def _mix(Fh, Gh, hc: int, x, g, fdt):
+        """Type-II Anderson mixing of ``g`` over the history rows ``Fh``,
+        ``Gh`` (window m, the newest ``hc`` real): the Gram matrix and the
+        right-hand side to the host, the regularized normal equations
+        solved there in the compute dtype, ``g - gamma dG`` back."""
+        m = Fh.shape[0]
+        dF = Fh[1:] - Fh[:-1]
+        dG = Gh[1:] - Gh[:-1]
+        # only the newest hc-1 difference rows are real
+        valid = np.arange(m - 1) >= (m - 1) - (hc - 1)
+        G = (dF @ dF.T).cpu().numpy()
+        cvec = (dF @ x).cpu().numpy()
+        timing.host_sync(2)
+        eye = np.eye(m - 1)
+        G = np.where(np.outer(valid, valid), G, eye)
+        cvec = np.where(valid, cvec, 0.0)
+        lam = 1e-12 * max(np.trace(G), 1e-30)
+        npf = np.float32 if fdt == torch.float32 else np.float64
+        gam = np.linalg.solve((G + lam * eye).astype(npf),
+                              cvec.astype(npf)).astype(np.float64)
+        gam = np.where(valid, gam, 0.0)
+        timing.host_sync()                  # gamma's copy to the device
+        return g - torch.as_tensor(gam, device=g.device) @ dG
 
     def solve_anderson(self, w0: Optional[torch.Tensor] = None, *,
                        m: int = 3, rtol: float = 1e-5,
@@ -269,6 +292,7 @@ class NonlinearSolver:
         for _ in range(max_steps):
             F, rn = self.residual_of(w)
             rn = float(rn)
+            timing.host_sync()
             res_hist.append(rn)
             if r0 is None:
                 r0 = rn if rn > 0 else 1.0
@@ -278,6 +302,7 @@ class NonlinearSolver:
             x, it, rn_lin, lin, rec = ir(w[:n_u], -F, rec)
             it_hist.append(int(it))
             lin_rel.append(float(rn_lin) / max(lin.bnorm, 1e-300))
+            timing.host_sync()
             g = w + x
             f = g - w
             hist_f.append(f)
@@ -292,6 +317,7 @@ class NonlinearSolver:
             dG = [b - a for a, b in zip(hist_g, hist_g[1:])]
             j = dF.shape[0]
             Gc = torch.cat([(dF @ dF.T).reshape(-1), dF @ f]).cpu().numpy()
+            timing.host_sync()
             G, c = Gc[:j * j].reshape(j, j), Gc[j * j:]
             lam = 1e-12 * max(np.trace(G), 1e-30)
             try:

@@ -56,6 +56,7 @@ from ..ops import subsolve
 from ..ops.sparse import ELL
 from .config import SolverConfig, SubsolveConfig
 from ..ops.dist import LOCAL, zero_mean
+from ..utils import timing
 from .fieldsplit import make_fieldsplit_upper
 from .krylov import (FGMRESResult, empty_recycle, fgmres, fgmres_dr,
                      refresh_recycle)
@@ -498,14 +499,16 @@ class OseenSolver:
         the solve (every round), and the new space is returned as ``rec``;
         otherwise ``rec`` comes back None.  ``iters`` is the total over
         rounds, ``result`` the last round's :class:`FGMRESResult` with
-        ``bnorm`` = |b|, ``host_syncs`` summed over the solve, ``rounds``
+        ``bnorm`` = |b|, ``host_syncs`` the solve's host waits (the
+        counter's, :mod:`..utils.timing`), ``rounds``
         the number of rounds and ``converged`` the true residual's test."""
         dt_hi = self.asm.dtype
         kcfg = self.config.krylov
 
         def single(wind, b, rec):
-            matvec_hi = self._hi_matvec(wind)
-            pc = self._pipeline(wind.to(self.dtype))
+            with timing.span("oseen.build"):
+                matvec_hi = self._hi_matvec(wind)
+                pc = self._pipeline(wind.to(self.dtype))
             b64 = b.to(dt_hi)
             if kcfg.recycle and rec is None:
                 rec = self.initial_recycle()
@@ -514,11 +517,14 @@ class OseenSolver:
                 rec = refresh_recycle(matvec_hi, rec)
             res, rec = self._krylov(matvec_hi, pc, b64, rtol, rec)
             rn = self.dist.norm(b64 - matvec_hi(res.x))
+            timing.counts["true_residuals"] += 1
             return res.x, res.iters, rn, res, rec
 
         def rounds(wind, b, rec):
-            matvec_hi = self._hi_matvec(wind)
-            matvec, pc = self._compute_pipeline(wind)
+            syncs0 = timing.counts["host_syncs"]
+            with timing.span("oseen.build"):
+                matvec_hi = self._hi_matvec(wind)
+                matvec, pc = self._compute_pipeline(wind)
             if kcfg.hi_matvec:
                 matvec = lambda x: matvec_hi(x.to(dt_hi)).to(self.dtype)
             if kcfg.recycle:
@@ -529,7 +535,8 @@ class OseenSolver:
             b64 = b.to(dt_hi)
             rn_t = self.dist.norm(b64)
             bnorm = rn = float(rn_t)
-            syncs, tol = 1, max(rtol * bnorm, 1e-300)
+            timing.host_sync()
+            tol = max(rtol * bnorm, 1e-300)
             x, r = torch.zeros_like(b64), b64
             att, total, k, res = kcfg.ir_attainable, 0, 0, None
             while k < max_rounds and rn > tol:
@@ -543,8 +550,9 @@ class OseenSolver:
                 x = x + scale * res.x.to(dt_hi)
                 r = b64 - matvec_hi(x)
                 rn_t = self.dist.norm(r)
+                timing.counts["true_residuals"] += 1
                 rn = float(rn_t)
-                syncs += 1 + res.host_syncs
+                timing.host_sync()
                 achieved = rn / scale
                 if achieved > 4.0 * target:
                     # the stall level is higher than believed: adopt it
@@ -556,8 +564,9 @@ class OseenSolver:
                                    resnorms=np.zeros(kcfg.maxiter + 1),
                                    converged=True, bnorm=bnorm,
                                    host_syncs=0)
-            res = res._replace(bnorm=bnorm, host_syncs=syncs, rounds=k,
-                               converged=rn <= tol)
+            res = res._replace(
+                bnorm=bnorm, rounds=k, converged=rn <= tol,
+                host_syncs=timing.counts["host_syncs"] - syncs0)
             return x, total, rn_t, res, rec
 
         def ir(wind: torch.Tensor, b: torch.Tensor, rec=None):
@@ -595,6 +604,7 @@ class OseenSolver:
             matvec, pc = self._compute_pipeline(wind)
         b_hi = b.to(dt_hi)
         bnorm = float(self.dist.norm(b_hi))
+        timing.host_sync()
         tol = max(rtol * bnorm, atol)
         x = torch.zeros_like(b_hi)
         hist, total = [], 0
@@ -602,6 +612,8 @@ class OseenSolver:
             if rnd:
                 r = b_hi - matvec_hi(x)
                 rn = float(self.dist.norm(r))
+                timing.counts["true_residuals"] += 1
+                timing.host_sync()
             else:
                 r, rn = b_hi, bnorm
             hist.append(rn)

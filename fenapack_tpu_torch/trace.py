@@ -1,11 +1,13 @@
-"""Where the time of a path goes on one CUDA GPU, and how far each SpMV
-kernel stays above its bound.
+"""Where the time of a path goes, by the program's spans
+(:mod:`fenapack_tpu_torch.utils.timing`).
 
     python -m fenapack_tpu_torch.trace [--problem cavity] [--steps 2]
     python -m fenapack_tpu_torch.trace --problem step [--level 2]
     python -m fenapack_tpu_torch.trace --problem cylinder [--steps 2]
     python -m fenapack_tpu_torch.trace --problem highre [--steps 2]
     python -m fenapack_tpu_torch.trace --problem step3d [--level 3]
+    python -m fenapack_tpu_torch.trace --problem step --level 1 \
+        --device cpu --no-profile
 
 ``cavity``: the slice's Re-100 solver (``fenapack_tpu_torch.cavity``), its
 first ``--steps`` Newton steps.  ``step``: the step benchmark's full solve
@@ -16,119 +18,40 @@ Newton steps of DFG 2D-1.  ``highre``: BASELINE config 5 at Re 2000
 (``fenapack_tpu_torch.highre``, level 2), its first ``--steps`` damped
 Picard steps on the stabilized system.  ``step3d``: BASELINE config 4
 (``fenapack_tpu_torch.step3d``, level 3, length 3: 760,852 dofs), its
-first ``--steps`` Picard steps.  The solve runs once as a warm-up, once
-unprofiled (wall time, peak device memory) and once under
-``torch.profiler``, and one JSON line is printed: the FGMRES iterations,
-the wall time with and without the profiler, the device busy time (the sum
-of the device events, one stream), the busy and idle shares, the device
-events per FGMRES iteration, the device time of the heaviest kernels by
-name, and per SpMV kernel (``ell_f64``, ``ell_block_f64``, ``bsr_f32``,
-...) the launches in the profiled solve, their device time, their bound
-(the bytes each launch must move over the HBM rate, or its operations over
-the peak rate if that is longer, summed over the launches; a block product
-given row lengths counts its rows' own entries, not the padding) and the
-device time above that bound, also split by the operator's row count
-(``by_rows``: the i-th launch the operators made is paired with the i-th
-device event of that kernel; one stream keeps the order).  It needs a CUDA
-device: every time is a device measurement.
+first ``--steps`` Picard steps.
+
+The solve runs once as a warm-up, once with spans off (wall time, peak
+device memory, the host-sync and true-residual counts), once with spans on
+and the profiler off (each span's count, host seconds and self seconds:
+its seconds less its child spans'), ``--pairs`` times more with spans off
+and on in turn (the spans' cost when on: the median ratio of the two
+walls), and, unless ``--no-profile``, once with the spans inside
+``torch.profiler``.  From that profile: the device busy time (the union of
+the device events), the busy and idle shares, the device events per FGMRES
+iteration, the heaviest device operations by name, and per span the device
+seconds and events whose launch ran with that span innermost on the host
+(the launch call and the event share the profiler's correlation id), the
+device seconds under it (``under_s``: its own and those of the spans
+inside it), and the idle gaps whose middle falls in it.  One JSON line is
+printed, the table under ``spans`` as ``columns`` and rows.  Spans,
+counts and the ``--no-profile`` table run on the CPU too (``--device
+cpu``).
 """
 from __future__ import annotations
 
 import argparse
+import bisect
 import collections
-import contextlib
 import json
-import re
+import statistics
 import time
 
 import torch
 
 from . import bench, cavity, cylinder, highre, measure, step3d
-from .ops import sparse
+from .utils import timing
 
-# the kernels' device events, e.g.
-# "void (anonymous namespace)::ell_spmv_kernel<double, 1>(int const*, ...)"
-_SPMV_EVENT = re.compile(
-    r"\b(ell_block|ell|bsr)_spmv_kernel<(double|float)\b")
-
-
-class _Tally(collections.defaultdict):
-    """``{kernel: [launches, bound_s]}``; ``each[kernel]`` lists every
-    launch in order as ``(n_rows, bound_s)``."""
-
-    def __init__(self):
-        super().__init__(lambda: [0, 0.0])
-        self.each = collections.defaultdict(list)
-
-    def add(self, kind, a, n_rows, nbytes, flops):
-        name = f"{kind}_{'f64' if a.dtype == torch.float64 else 'f32'}"
-        bound_s = measure.bound(nbytes, flops, a.dtype)[0] * 1e-3
-        self[name][0] += 1
-        self[name][1] += bound_s
-        self.each[name].append((n_rows, bound_s))
-
-
-@contextlib.contextmanager
-def _bounds():
-    """Yield the :class:`_Tally` of every product that ``ops.sparse``
-    makes inside the block."""
-    tally = _Tally()
-    ell, blk, bsr = (sparse.ell_spmv, sparse.ell_block_spmv,
-                     sparse.bsr_spmv)
-
-    def ell_tallied(cols, vals, x, n_cols):
-        k = 1 if x.dim() == 1 else x.shape[1]
-        tally.add("ell", vals, vals.shape[0],
-                  measure.ell_bytes(vals, n_cols, k), 2 * vals.numel() * k)
-        return ell(cols, vals, x, n_cols)
-
-    def blk_tallied(cols, A1, R, x, n_cols, y0=None, row_len=None):
-        d = x.shape[0]
-        tally.add("ell_block", A1, A1.shape[0],
-                  measure.ell_block_bytes(A1, R, d, n_cols, y0 is not None,
-                                          row_len),
-                  measure.ell_block_flops(A1, R, d, row_len))
-        return blk(cols, A1, R, x, n_cols, y0, row_len=row_len)
-
-    def bsr_tallied(nbr, tiles, x, n_rows, n_cols):
-        k = 1 if x.dim() == 1 else x.shape[1]
-        tally.add("bsr", tiles, n_rows,
-                  measure.bsr_bytes(nbr, tiles, n_rows, n_cols, k),
-                  2 * tiles.numel() * k)
-        return bsr(nbr, tiles, x, n_rows, n_cols)
-
-    sparse.ell_spmv, sparse.ell_block_spmv, sparse.bsr_spmv = (
-        ell_tallied, blk_tallied, bsr_tallied)
-    try:
-        yield tally
-    finally:
-        sparse.ell_spmv, sparse.ell_block_spmv, sparse.bsr_spmv = (
-            ell, blk, bsr)
-
-
-def _by_rows(launched, event_us):
-    """``{n_rows: {launches, device_s, bound_s}}`` from the launches of one
-    kernel, ``(n_rows, bound_s)`` in order, and the microseconds of its
-    device events in order; None when the two lists differ in length (the
-    profiler dropped or added events) and no pairing can be trusted."""
-    if len(launched) != len(event_us):
-        return None
-    split = collections.defaultdict(lambda: [0, 0.0, 0.0])
-    for (n_rows, bound_s), us in zip(launched, event_us):
-        s = split[n_rows]
-        s[0] += 1
-        s[1] += us * 1e-6
-        s[2] += bound_s
-    return {str(n): {"launches": s[0], "device_s": s[1], "bound_s": s[2]}
-            for n, s in sorted(split.items())}
-
-
-def _kernel_of(event_name: str):
-    """``ell_f64`` etc. for an SpMV kernel's device event, else None."""
-    m = _SPMV_EVENT.search(event_name)
-    if m is None:
-        return None
-    return f"{m.group(1)}_{'f64' if m.group(2) == 'double' else 'f32'}"
+_PREFIX = "fenapack."
 
 
 def _solver(problem: str, level: int, steps: int, dev):
@@ -166,73 +89,171 @@ def _solver(problem: str, level: int, steps: int, dev):
     return lambda: full(w0), lambda r: r.iters, nl.n
 
 
-def run(problem: str = "cavity", level: int = None, steps: int = 2) -> dict:
+def _profiled(solve, cuda: bool):
+    """``(result, wall_s, spans, launches, device)`` of one solve with the
+    spans inside the profiler: the spans ``(start_us, end_us, name)`` on
+    the thread that holds most of them, ``{correlation id: start_us}`` of
+    the CUDA API calls, the device events ``(start_us, end_us, name,
+    correlation id)`` without the spans' device-side annotations."""
     from torch.profiler import ProfilerActivity, profile
-    if not torch.cuda.is_available():
-        raise RuntimeError("the trace measures a CUDA device")
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with timing.tracing(profile=True), profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        r = solve()
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_type = torch.autograd.DeviceType.CUDA
+    spans, launches, device = [], {}, []
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        s, t = e.start_ns() * 1e-3, e.end_ns() * 1e-3
+        if e.device_type() == dev_type:
+            if not e.is_user_annotation():
+                device.append((s, t, name, e.correlation_id()))
+        elif name.startswith(_PREFIX):
+            spans.append((s, t, name[len(_PREFIX):], e.start_thread_id()))
+        elif name.startswith("cu") and e.correlation_id():
+            launches[e.correlation_id()] = s
+    main = collections.Counter(h[3] for h in spans).most_common(1)
+    spans = sorted((h[:3] for h in spans if h[3] == main[0][0]),
+                   key=lambda h: (h[0], -h[1])) if main else []
+    return r, wall, spans, launches, sorted(device)
+
+
+def _innermost(spans):
+    """``at(t)``: the names of the innermost of the nested spans (sorted by
+    start, longest first) open at host time ``t`` and of the spans around
+    it, innermost first, each once."""
+    parent, stack = [], []
+    for i, (s, _, _) in enumerate(spans):
+        while stack and spans[stack[-1]][1] <= s:
+            stack.pop()
+        parent.append(stack[-1] if stack else -1)
+        stack.append(i)
+    starts = [h[0] for h in spans]
+
+    def at(t):
+        i = bisect.bisect_right(starts, t) - 1
+        while i >= 0 and spans[i][1] < t:
+            i = parent[i]
+        names = []
+        while i >= 0:
+            if spans[i][2] not in names:
+                names.append(spans[i][2])
+            i = parent[i]
+        return names
+    return at
+
+
+def _device_by_span(spans, launches, device):
+    """``(busy_us, {span: [device_s, under_s, events, idle_s]},
+    unattributed_s)``: each device event under the innermost span open at
+    its launch (``under_s``: the union of the events under the span or a
+    span inside it), each idle gap under the innermost span open at its
+    middle."""
+    at = _innermost(spans)
+    table = collections.defaultdict(lambda: [0.0, 0.0, 0, 0.0])
+    merged, last_end, unattributed = [], {}, 0.0
+    for s, e, _, corr in device:
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+        t = launches.get(corr)
+        names = [] if t is None else at(t)
+        if not names:
+            unattributed += (e - s) * 1e-6
+            continue
+        table[names[0]][0] += (e - s) * 1e-6
+        table[names[0]][2] += 1
+        for n in names:
+            table[n][1] += max(0.0, e - max(s, last_end.get(n, s))) * 1e-6
+            last_end[n] = max(last_end.get(n, e), e)
+    for (_, a), (b, _) in zip(merged, merged[1:]):
+        name = (at(0.5 * (a + b)) or ["outside"])[0]
+        table[name][3] += (b - a) * 1e-6
+    return sum(e - s for s, e in merged), table, unattributed
+
+
+def run(problem: str = "cavity", level: int = None, steps: int = 2, *,
+        device: str = "cuda", profile: bool = True, pairs: int = 0) -> dict:
+    cuda = torch.device(device).type == "cuda"
+    if cuda and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: run with --device cpu")
     if level is None:
         level = {"cavity": cavity.LEVEL, "step3d": 3}.get(problem, 2)
-    dev = torch.device("cuda")
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
     solve, iters_of, dofs = _solver(problem, level, steps, dev)
-    solve()                                             # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    r = solve()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    with _bounds() as bounds, profile(activities=[
-            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def timed(spans_on: bool):
+        sync()
         t0 = time.perf_counter()
-        rp = solve()
+        if spans_on:
+            with timing.tracing() as rec:
+                r = solve()
+                sync()
+        else:
+            rec, r = None, solve()
+            sync()
+        return r, time.perf_counter() - t0, rec
+
+    solve()                                             # warm-up
+    if cuda:
         torch.cuda.synchronize()
-        wall_prof = time.perf_counter() - t0
-    events = sorted(measure.device_events(prof),
-                    key=lambda e: e.time_range.start)
-    busy_us = sum(e.time_range.elapsed_us() for e in events)
-    by_name = collections.defaultdict(lambda: [0, 0.0])
-    spmv = collections.defaultdict(lambda: [0, 0.0])
-    spmv_us = collections.defaultdict(list)
-    for e in events:
-        us = e.time_range.elapsed_us()
-        by_name[e.name][0] += 1
-        by_name[e.name][1] += us
-        kind = _kernel_of(e.name)
-        if kind:
-            spmv[kind][0] += 1
-            spmv[kind][1] += us
-            spmv_us[kind].append(us)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    iters = iters_of(rp)
-    kernels = {}
-    for kind in sorted(set(spmv) | set(bounds)):
-        n, bound_s = bounds[kind]
-        dev_s = spmv[kind][1] * 1e-6
-        kernels[kind] = {"launches": n, "device_events": spmv[kind][0],
-                         "device_s": dev_s, "bound_s": bound_s,
-                         "above_bound_s": dev_s - bound_s,
-                         "by_rows": _by_rows(bounds.each[kind],
-                                             spmv_us[kind])}
-    return {
+        torch.cuda.reset_peak_memory_stats()
+    c0 = measure.host_counts()
+    r, wall, _ = timed(False)
+    c1 = measure.host_counts()
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    rs, wall_spans, rec = timed(True)
+    ratios = []
+    for _ in range(pairs):
+        off, on = timed(False)[1], timed(True)[1]
+        ratios.append(on / off)
+    table = {n: v + [0.0, 0.0, 0, 0.0]
+             for n, v in timing.span_table(rec.spans).items()}
+    iters = iters_of(r)
+    n_it = max(sum(iters), 1)
+    out = {
         "problem": problem, "level": level, "dofs": int(dofs),
-        "fgmres_iters": iters, "same_iters": iters_of(r) == iters,
-        "wall_s": wall, "wall_profiled_s": wall_prof,
-        "ms_per_fgmres_iter": wall / max(sum(iters_of(r)), 1) * 1e3,
-        "device_busy_s": busy_us * 1e-6,
-        "busy_share_profiled": busy_us * 1e-6 / wall_prof,
-        "idle_share_profiled": 1.0 - busy_us * 1e-6 / wall_prof,
-        "busy_share_of_unprofiled_wall": busy_us * 1e-6 / wall,
-        "device_events": len(events),
-        "device_events_per_iter": len(events) / max(sum(iters), 1),
-        "spmv_kernels": kernels,
-        "spmv_launches_per_iter": sum(k["launches"] for k in kernels.values())
-        / max(sum(iters), 1),
+        "device": torch.cuda.get_device_name(0) if cuda else "cpu",
+        "fgmres_iters": iters, "same_iters": iters_of(rs) == iters,
+        "wall_s": wall, "wall_spans_s": wall_spans,
+        "spans_on_ratios": ratios,
+        "spans_on_cost": statistics.median(ratios) if ratios else None,
+        "ms_per_fgmres_iter": wall / n_it * 1e3,
+        "counts": {k: c1[k] - c0[k] for k in c1},
+        "host_syncs_per_iter": (c1["host_syncs"] - c0["host_syncs"]) / n_it,
         "peak_device_memory_bytes": peak,
-        "top_kernels": [{"name": k[:90], "count": v[0],
-                         "device_ms": v[1] * 1e-3} for k, v in top],
-        "device": torch.cuda.get_device_name(0),
     }
+    if profile:
+        rp, wall_prof, spans, launches, dev_ev = _profiled(solve, cuda)
+        busy_us, by_span, unattributed = _device_by_span(spans, launches,
+                                                         dev_ev)
+        for n, v in by_span.items():
+            table.setdefault(n, [0, 0.0, 0.0] + [0.0, 0.0, 0, 0.0])[3:] = v
+        by_name = collections.Counter()
+        for s, e, name, _ in dev_ev:
+            by_name[name] += (e - s) * 1e-3
+        out.update({
+            "wall_profiled_s": wall_prof,
+            "device_busy_s": busy_us * 1e-6,
+            "busy_share_profiled": busy_us * 1e-6 / wall_prof,
+            "busy_share_of_unprofiled_wall": busy_us * 1e-6 / wall,
+            "device_events": len(dev_ev),
+            "device_events_per_iter": len(dev_ev) / max(sum(iters_of(rp)),
+                                                        1),
+            "unattributed_device_s": unattributed,
+            "top_kernels": [{"name": k[:90], "device_ms": v}
+                            for k, v in by_name.most_common(12)],
+        })
+    out["spans"] = {
+        "columns": ["count", "host_s", "self_s", "device_s", "under_s",
+                    "device_events", "idle_s"],
+        "rows": dict(sorted(table.items(), key=lambda kv: -kv[1][1]))}
+    return out
 
 
 def main(argv=None):
@@ -247,8 +268,16 @@ def main(argv=None):
                          "BDF2 steps of the cylinder, damped Picard steps "
                          "of highre and step3d (the step runs its full "
                          "solve)")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--no-profile", action="store_true",
+                    help="the spans' host table only, no profiler")
+    ap.add_argument("--pairs", type=int, default=0,
+                    help="solves with spans off and on in turn, for the "
+                         "spans' cost when on")
     args = ap.parse_args(argv)
-    print(json.dumps(run(args.problem, args.level, args.steps)), flush=True)
+    print(json.dumps(run(args.problem, args.level, args.steps,
+                         device=args.device, profile=not args.no_profile,
+                         pairs=args.pairs)), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,9 @@
+"""pc_pcd_device_ms_per_iter: the union of the device events launched
+under the ``pc.pcd`` span (the PCD apply: pressure multigrid, Kp, the
+Chebyshev mass solve) in the span-profile pass (:mod:`pcdbench.spans`,
+pass (b)), in ms per outer FGMRES iteration (preconditioner)."""
+from pcdbench import spans
+
+
+def read(ctx):
+    return spans.device_ms_per_iter(ctx, "pc.pcd")

@@ -459,36 +459,20 @@ def test_each_source_builds_into_its_own_library(monkeypatch):
     assert kernels.library_path("ell_spmv") != paths["ell_spmv"]
 
 
-def test_trace_sums_the_bound_of_each_product():
-    """``trace`` tallies, per kernel, the launches of the products the
-    operators make and their bound (bytes over the HBM rate: the block
-    product's whole-product bytes, columns once and every plane once, of
-    every slot or, given row lengths, of the rows' own entries), keeps each
-    launch's row count for the split by rows, and maps the kernels' device
-    events to the same names."""
-    from fenapack_tpu_torch import measure, trace
-    from fenapack_tpu_torch.ops import sparse
+def test_layout_bytes_of_each_product():
+    """``measure`` counts the bytes each product must move: an ELL product
+    its values and columns (every slot) with x and y per right-hand side,
+    the block product its columns once and every plane once, of every slot
+    or, given row lengths, of the rows' own entries."""
+    from fenapack_tpu_torch import measure
     cols, vals, nc = _random_ell(torch.float64, "cpu")
-    ell, mv, bmv = ELL(cols, vals, nc), sparse.ell_spmv, sparse.ell_block_spmv
-    bcols, A1, R, xb, y0 = _random_block(torch.float64, "cpu", 2, True,
-                                         n=40, n_cols=40)
-    # rows of 0..6 of the 7 slots, the padding zero as the layout has it
+    _, A1, R, _, _ = _random_block(torch.float64, "cpu", 2, True, n=40,
+                                   n_cols=40)
     lens = torch.arange(40, dtype=torch.int32) % 7
-    pad = torch.arange(7)[None, :] >= lens[:, None]
-    A1p, Rp = A1.masked_fill(pad, 0.0), R.masked_fill(pad, 0.0)
-    with trace._bounds() as tally:
-        ell.mv(torch.randn(nc, dtype=torch.float64))
-        ell.mv(torch.randn(nc, 2, dtype=torch.float64))
-        ELLBlock(bcols, A1, R, 40).mv(xb)
-        ELLBlock(bcols, A1, None, 40).mv(xb, y0)
-        y = ELLBlock(bcols, A1p, Rp, 40, lens).mv(xb)
-    assert torch.equal(y, K.ell_block_spmv_plain(bcols, A1p, Rp, xb, 40))
-    assert sparse.ell_spmv is mv and sparse.ell_block_spmv is bmv
-    one, two = (measure.ell_bytes(vals, nc, k) / measure.HBM_BPS
-                for k in (1, 2))
-    assert dict(tally).keys() == {"ell_f64", "ell_block_f64"}
-    assert tally["ell_f64"][0] == 2
-    assert tally["ell_f64"][1] == pytest.approx(one + two, rel=1e-12)
+    n, k_slots = vals.shape
+    for k in (1, 2):
+        assert measure.ell_bytes(vals, nc, k) == \
+            n * k_slots * (8 + 4) + (nc + n) * k * 8
     # cols once, A1 + 4 planes of R, 2 components of x and y (and y0)
     newton = 40 * 7 * (4 + 5 * 8) + 2 * (40 + 40) * 8
     picard = 40 * 7 * (4 + 8) + 2 * (40 + 2 * 40) * 8
@@ -496,26 +480,30 @@ def test_trace_sums_the_bound_of_each_product():
     ragged = entries * (4 + 5 * 8) + 2 * (40 + 40) * 8
     assert measure.ell_block_bytes(A1, R, 2, 40) == newton
     assert measure.ell_block_bytes(A1, None, 2, 40, y0=True) == picard
-    assert measure.ell_block_bytes(A1p, Rp, 2, 40, row_len=lens) == ragged
-    assert tally["ell_block_f64"][0] == 3
-    assert tally["ell_block_f64"][1] == pytest.approx(
-        (newton + picard + ragged) / measure.HBM_BPS, rel=1e-12)
-    # the split by rows pairs the i-th launch with the i-th device event
-    each = tally.each["ell_f64"]
-    assert [n for n, _ in each] == [300, 300]
-    split = trace._by_rows(each + tally.each["ell_block_f64"][:1],
-                           [2.0, 3.0, 7.0])
-    assert split["300"]["launches"] == 2 and split["40"]["launches"] == 1
-    assert split["300"]["device_s"] == pytest.approx(5e-6)
-    assert split["300"]["bound_s"] == pytest.approx(one + two, rel=1e-12)
-    assert trace._by_rows(each, [2.0]) is None      # events went missing
-    # the names the profiler gives them on the card
-    assert trace._kernel_of("void (anonymous namespace)::ell_spmv_kernel<"
-                            "double, 1>(int const*, double const*, double c"
-                            ) == "ell_f64"
-    assert trace._kernel_of("void (anonymous namespace)::ell_block_spmv_"
-                            "kernel<double, 2, true>(int const*, double co"
-                            ) == "ell_block_f64"
-    assert trace._kernel_of("void (anonymous namespace)::bsr_spmv_kernel<"
-                            "float, 2>(int const*, float const*)") == "bsr_f32"
-    assert trace._kernel_of("void at::native::elementwise_kernel") is None
+    assert measure.ell_block_bytes(A1, R, 2, 40, row_len=lens) == ragged
+    assert measure.bound(newton, 0, torch.float64) == (
+        pytest.approx(newton / measure.HBM_BPS * 1e3), "bytes")
+
+
+def test_spmv_spans_name_each_product():
+    """With spans on, every product of the three layouts is one span named
+    by its layout, and the products give what they give with spans off."""
+    from fenapack_tpu_torch.ops.sparse import BlockELL
+    from fenapack_tpu_torch.utils import timing
+    cols, vals, nc = _random_ell(torch.float64, "cpu")
+    bcols, A1, R, xb, _ = _random_block(torch.float64, "cpu", 2, True,
+                                        n=40, n_cols=40)
+    nbr = torch.tensor([[0, 1], [1, 1]], dtype=torch.int32)
+    bsr = BlockELL(nbr, torch.randn(2, 4, 8, dtype=torch.float64), 8, 8)
+    x, x8 = torch.randn(nc, dtype=torch.float64), torch.randn(
+        8, dtype=torch.float64)
+    ops = [lambda: ELL(cols, vals, nc).mv(x),
+           lambda: ELLBlock(bcols, A1, R, 40).mv(xb),
+           lambda: bsr.mv(x8)]
+    off = [op() for op in ops]
+    with timing.tracing() as rec:
+        on = [op() for op in ops]
+    assert [s.name for s in rec.spans] == ["spmv.ell", "spmv.ell_block",
+                                           "spmv.bsr"]
+    assert all(s.parent == -1 and s.end_ns >= s.start_ns for s in rec.spans)
+    assert all(torch.equal(a, b) for a, b in zip(off, on))

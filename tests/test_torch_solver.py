@@ -93,7 +93,8 @@ def test_fgmres_matches_jax(reorth_eta):
     np.testing.assert_allclose(rt.resnorms, np.asarray(rj.resnorms),
                                rtol=1e-8, atol=1e-300)
     assert np.linalg.norm(b - A @ rt.x.numpy()) <= 1e-10 * np.linalg.norm(b)
-    assert rt.host_syncs == rt.iters + 1
+    # |b|, one Hessenberg column an iteration, y's copy to the device
+    assert rt.host_syncs == rt.iters + 2
 
 
 def test_fgmres_converged_flag_is_honest():
