@@ -3,11 +3,13 @@ Picard with Anderson(6) mixing and PCD-BRM2, on a CUDA device.
 
 The counterpart of the repository's ``bench.py`` (``build`` and ``main``)
 in the main-path configuration: level-2 mesh by uniform refinement of the
-level-0 step, Taylor-Hood P2/P1 in natural ordering, BSR operators with
-b = 32, each linear solve by f64 FGMRES (f64 BSR system matvec) to a true
-relative residual of 1e-8 around an f32 upper Schur fieldsplit (velocity
-multigrid, PCD-BRM2 with pressure multigrid for Ap and Chebyshev-4 for Mp),
-nonlinear relative residual 1e-5.
+level-0 step, Taylor-Hood P2/P1, BSR operators with b = 32 on every
+multigrid level, each level's dofs in its own RCM order (the block
+layout's default, ``NSAssembler(reorder=None)``), each linear solve by f64
+FGMRES (f64 BSR system matvec) to a true relative residual of 1e-8 around
+an f32 upper Schur fieldsplit (velocity multigrid, PCD-BRM2 with pressure
+multigrid for Ap and Chebyshev-4 for Mp), nonlinear relative residual
+1e-5.
 
     python -m fenapack_tpu_torch.bench [--level 2]
 

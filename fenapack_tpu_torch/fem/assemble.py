@@ -69,12 +69,17 @@ class NSAssembler:
     (``const_hi``, the outer matvec and residual) in the same block layout
     instead of ELL.  ``p1_only`` builds the pressure space alone (pattern,
     Ap, Mp), as the pressure multigrid levels need.  Velocity layout:
-    ``u = [u_x (n2); u_y (n2)]`` (and ``u_z`` in 3D).  Dofs keep the mesh's
-    natural order unless ``reorder``: then the velocity dofs are relabeled
-    by RCM and the pressure dofs by the order it induces on the vertices
-    (``TaylorHood(reorder=True)``), which keeps every operator's bandwidth
-    within one row block of the multi-device ring path
-    (:mod:`fenapack_tpu_torch.parallel`).
+    ``u = [u_x (n2); u_y (n2)]`` (and ``u_z`` in 3D).  Under ``reorder``
+    the velocity dofs are relabeled by RCM and the pressure dofs by the
+    order it induces on the vertices (``TaylorHood(reorder=True)``);
+    otherwise they keep the mesh's natural order.  ``reorder=None`` (the
+    JAX package's default) reorders exactly in the block layout: a BSR
+    tile stores zeros wherever its block row misses a block column, and
+    RCM's narrow band cuts the stored slots per nonzero at b = 32 from
+    195x to 25x for the scalar P2 operator at the step's level 4, while
+    the ELL layout reads each row's own entries in either order.  The
+    ring path (:mod:`fenapack_tpu_torch.parallel`) asks for it explicitly:
+    it keeps every operator's bandwidth within one row block.
 
     ``row_align > 1`` pads both scalar spaces to multiples of it
     (``TaylorHood(align=)``; ``n2``, ``n1`` padded, ``n2_real``,
@@ -90,7 +95,7 @@ class NSAssembler:
     def __init__(self, mesh, nu: float, *, device, dtype=torch.float64,
                  quad_degree: int = 5, block_size: Optional[int] = None,
                  block_dtype=None, hi_block: bool = False,
-                 p1_only: bool = False, reorder: bool = False,
+                 p1_only: bool = False, reorder: Optional[bool] = None,
                  row_align: int = 1):
         t0 = time.perf_counter()
         self.device = torch.device(device)
@@ -102,6 +107,8 @@ class NSAssembler:
         self.dim = d = mesh.vertices.shape[1]
         self.block_size = block_size
         self.row_align = int(row_align)
+        if reorder is None:
+            reorder = bool(block_size)
         self.W = W = TaylorHood(mesh, align=self.row_align, reorder=reorder)
         self.n2, self.n1 = W.n2, W.n1           # padded sizes
         self.n2_real, self.n1_real = W.V.dim, W.Q.dim

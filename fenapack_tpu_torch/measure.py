@@ -30,8 +30,8 @@ def launch_counts() -> dict:
 
 def host_counts() -> dict:
     """The solve path's counters of this process (``host_syncs``,
-    ``true_residuals``: :data:`..utils.timing.counts`), counted on every
-    device."""
+    ``true_residuals``; while tracing, ``bsr_slots`` and ``bsr_nnz``:
+    :data:`..utils.timing.counts`), counted on every device."""
     from .utils import timing
     return dict(timing.counts)
 

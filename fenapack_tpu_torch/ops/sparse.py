@@ -39,7 +39,7 @@ import torch
 
 from .bsr_spmv import bsr_spmv
 from .ell_spmv import ell_block_spmv, ell_spmv
-from ..utils.timing import span
+from ..utils.timing import bsr_read, span
 
 
 class SegmentSum:
@@ -151,12 +151,15 @@ class ELLBlock:
 class BlockELL:
     """Block-sparse-row matrix: block row I couples to block columns
     ``nbr[I, :]`` (padding slots repeat a valid block and hold zero tiles);
-    ``tiles`` is (nb, b, m*b) in the flat layout of the module docstring."""
+    ``tiles`` is (nb, b, m*b) in the flat layout of the module docstring.
+    ``nnz``: the operator's own nonzeros where its pattern is known (the
+    tracing counters' ``bsr_nnz``); None: the product is not counted."""
 
     def __init__(self, nbr: torch.Tensor, tiles: torch.Tensor, n_rows: int,
-                 n_cols: int):
+                 n_cols: int, nnz: Optional[int] = None):
         self.nbr, self.tiles = nbr, tiles
         self.n_rows, self.n_cols = n_rows, n_cols
+        self.nnz = nnz
 
     @property
     def shape(self):
@@ -167,11 +170,13 @@ class BlockELL:
         return self.tiles
 
     def with_vals(self, vals: torch.Tensor) -> "BlockELL":
-        return BlockELL(self.nbr, vals, self.n_rows, self.n_cols)
+        return BlockELL(self.nbr, vals, self.n_rows, self.n_cols, self.nnz)
 
     def mv(self, x: torch.Tensor) -> torch.Tensor:
         """y = A @ x for x of shape (n_cols,) or (n_cols, k)."""
         with span("spmv.bsr"):
+            if self.nnz is not None:
+                bsr_read(self.tiles.numel(), self.nnz)
             return bsr_spmv(self.nbr, self.tiles, x.contiguous(),
                             self.n_rows, self.n_cols)
 
@@ -379,7 +384,7 @@ class BlockSparsityPattern(SparsityPattern):
         self.fill_ratio = float(nb * m * b * b) / max(self.nnz, 1)
 
     def matrix(self, vals: torch.Tensor):
-        return BlockELL(self.nbr, vals, self.n_rows, self.n_cols)
+        return BlockELL(self.nbr, vals, self.n_rows, self.n_cols, self.nnz)
 
     def block_matrix(self, A1vals, Rvals=None):
         raise NotImplementedError(

@@ -33,8 +33,13 @@ Triangle meshes refine 1:4 and tet meshes 1:8 (``fem.mesh3d``).  With
 BSR SpMV kernel; without it prolongations are gathers and each restriction
 is the transposed prolongation stored as an ELL matrix and applied by the
 ELL SpMV kernel, whose rows sum in a fixed order (a scatter-add would sum
-in no fixed order on the card).  Dofs keep the natural order on every
-level.
+in no fixed order on the card).
+
+Every level takes the fine assembler's dof order (``reorder``): natural,
+or each level relabeled by its own RCM (``TaylorHood(reorder=True)``), as
+the block layout's assemblers are by default.  The transfers then compose
+the two levels' ranks: their stencils are indexed by the new fine ids and
+point at the new coarse ids, and the wind's injection is a gather.
 """
 from __future__ import annotations
 
@@ -95,6 +100,25 @@ def build_hierarchy(coarse, levels: int,
     return MeshHierarchy(meshes=meshes, parents=parents)
 
 
+def _ordering(fine_asm, reorder: Optional[bool]) -> bool:
+    """A hierarchy's dof order: ``reorder`` where given, else the fine
+    assembler's (natural without one).  A fine assembler in the other order
+    raises: its vectors would meet levels they do not match."""
+    fine = None if fine_asm is None else bool(fine_asm.W.reorder)
+    if reorder is None:
+        return bool(fine)
+    if fine is not None and fine != bool(reorder):
+        raise ValueError(f"fine_asm has reorder={fine} but the hierarchy "
+                         f"reorder={bool(reorder)}: the orderings must match")
+    return bool(reorder)
+
+
+def _ids(rank: Optional[np.ndarray], n: int) -> np.ndarray:
+    """A level's new dof ids by old id: its rank, or the identity."""
+    return (np.arange(n, dtype=np.int64) if rank is None
+            else np.asarray(rank, dtype=np.int64))
+
+
 def _block_transfer(rows, cols, vals, n_rows, n_cols, block, device):
     pat = BlockSparsityPattern(rows, cols, n_rows, n_cols, block=block,
                                device=device)
@@ -116,13 +140,22 @@ def _ell_restriction(rows, cols, vals: np.ndarray, n_fine, n_coarse, dtype,
 
 
 class P1Transfer:
-    """Prolongation/restriction between two P1 levels from parent pairs."""
+    """Prolongation/restriction between two P1 levels from parent pairs.
+    ``rank_fine`` / ``rank_coarse``: the levels' relabelings (old vertex ->
+    new dof), None where a level keeps the natural order."""
 
     def __init__(self, parents: np.ndarray, n_coarse: int, dtype, *, device,
-                 block_size: Optional[int] = None):
+                 block_size: Optional[int] = None,
+                 rank_fine: Optional[np.ndarray] = None,
+                 rank_coarse: Optional[np.ndarray] = None):
         nf = parents.shape[0]
         pa = parents[:, 0].astype(np.int64)
         pb = parents[:, 1].astype(np.int64)
+        if rank_fine is not None or rank_coarse is not None:
+            rf, rc = _ids(rank_fine, nf), _ids(rank_coarse, n_coarse)
+            pa_r, pb_r = np.empty_like(pa), np.empty_like(pb)
+            pa_r[rf], pb_r[rf] = rc[pa], rc[pb]
+            pa, pb = pa_r, pb_r
         self.pa = torch.as_tensor(pa, device=device)
         self.pb = torch.as_tensor(pb, device=device)
         self.n_coarse, self.n_fine = n_coarse, nf
@@ -255,7 +288,8 @@ class PressureHierarchy:
 
     def __init__(self, hier: MeshHierarchy, dtype, *, device,
                  pcd_markers: Sequence[int] = (),
-                 block_size: Optional[int] = None, fine_asm=None):
+                 block_size: Optional[int] = None, fine_asm=None,
+                 reorder: Optional[bool] = None):
         from ..fem.assemble import NSAssembler
         if fine_asm is not None and fine_asm.mesh is not hier.fine:
             raise ValueError("fine_asm was built on a different mesh")
@@ -263,9 +297,11 @@ class PressureHierarchy:
             raise ValueError("fine_asm with row alignment padding cannot "
                              "seed the hierarchy fine level")
         self.hier, self.dtype = hier, dtype
+        self.reorder = _ordering(fine_asm, reorder)
         self.pcd_markers = tuple(pcd_markers)
         self.levels: List[PLevel] = []
         self.transfers: List[P1Transfer] = []
+        ranks = []
         L = len(hier.meshes)
         for l, mesh in enumerate(hier.meshes):
             if fine_asm is not None and l == L - 1:
@@ -273,7 +309,7 @@ class PressureHierarchy:
             else:
                 asm = NSAssembler(mesh, nu=1.0, device=device, dtype=dtype,
                                   quad_degree=2, block_size=block_size,
-                                  p1_only=True)
+                                  p1_only=True, reorder=self.reorder)
             Ap = asm.const.Ap.with_vals(asm.const.Ap.vals.to(dtype))
             dofs = asm.W.Q.facet_dofs(list(pcd_markers))
             mask = None
@@ -282,10 +318,12 @@ class PressureHierarchy:
                 m[dofs] = 1.0
                 mask = torch.as_tensor(m, dtype=dtype, device=device)
             self.levels.append(PLevel(asm, Ap, mask))
+            ranks.append(asm.W.Q.rank if self.reorder else None)
             if l > 0:
                 self.transfers.append(P1Transfer(
                     hier.parents[l - 1], hier.meshes[l - 1].num_vertices,
-                    dtype, device=device, block_size=block_size))
+                    dtype, device=device, block_size=block_size,
+                    rank_fine=ranks[l], rank_coarse=ranks[l - 1]))
 
 
 def make_gmg_solver(hierarchy: PressureHierarchy, cfg: MultigridConfig,
@@ -346,10 +384,14 @@ class P2Transfer:
     3D): the first ``nv_f`` fine dofs (fine vertices) coincide with the
     coarse P2 dofs; each fine edge midpoint is interpolated with the coarse
     P2 basis (6 functions on a triangle, 10 on a tet) of its parent cell
-    (weights precomputed on the host)."""
+    (weights precomputed on the host).  ``rank_fine`` / ``rank_coarse``:
+    the levels' relabelings (old dof -> new dof), None where a level keeps
+    the natural order."""
 
     def __init__(self, coarse, fine, dtype, *, device,
-                 block_size: Optional[int] = None):
+                 block_size: Optional[int] = None,
+                 rank_fine: Optional[np.ndarray] = None,
+                 rank_coarse: Optional[np.ndarray] = None):
         d = coarse.vertices.shape[1]
         nv_f, ne_f = fine.num_vertices, fine.num_edges
         self.n_coarse = coarse.num_vertices + coarse.num_edges
@@ -374,15 +416,32 @@ class P2Transfer:
         cdofs = np.concatenate([coarse.cells[parent],
                                 coarse.num_vertices
                                 + coarse.cell_edges[parent]], axis=1)
-        self.mid_dofs = torch.as_tensor(cdofs.astype(np.int64),
-                                        device=device)
-        self.mid_w = torch.as_tensor(phi, dtype=dtype, device=device)
+        cdofs = cdofs.astype(np.int64)
+        relabeled = rank_fine is not None or rank_coarse is not None
+        rf = _ids(rank_fine, self.n_fine)
+        rc = _ids(rank_coarse, self.n_coarse)
+        self._inj = None
+        if relabeled:
+            # fine vertex i is coarse dof i: new coarse id -> new fine id
+            inj = np.empty(self.n_coarse, dtype=np.int64)
+            inj[rc[:nv_f]] = rf[:nv_f]
+            self._inj = torch.as_tensor(inj, device=device)
+            # the gather prolongation's stencil of every new fine id: an
+            # identity entry at a vertex, the basis weights at a midpoint
+            mid_dofs = np.zeros((self.n_fine, nb2), dtype=np.int64)
+            mid_w = np.zeros((self.n_fine, nb2))
+            mid_dofs[rf[:nv_f], 0] = rc[:nv_f]
+            mid_w[rf[:nv_f], 0] = 1.0
+            mid_dofs[rf[nv_f:]] = rc[cdofs]
+            mid_w[rf[nv_f:]] = phi
+        else:
+            mid_dofs, mid_w = cdofs, phi
+        self._relabeled = relabeled
+        self.mid_dofs = torch.as_tensor(mid_dofs, device=device)
+        self.mid_w = torch.as_tensor(mid_w, dtype=dtype, device=device)
         self._P = None
-        rows = np.concatenate([np.arange(nv_f, dtype=np.int64),
-                               np.arange(nv_f, self.n_fine,
-                                         dtype=np.int64).repeat(nb2)])
-        cols = np.concatenate([np.arange(nv_f, dtype=np.int64),
-                               cdofs.astype(np.int64).ravel()])
+        rows = np.concatenate([rf[:nv_f], rf[nv_f:].repeat(nb2)])
+        cols = np.concatenate([rc[:nv_f], rc[cdofs].ravel()])
         vals = np.concatenate([np.ones(nv_f), phi.ravel()])
         if block_size:
             vals = torch.as_tensor(vals, dtype=dtype, device=device)
@@ -398,13 +457,16 @@ class P2Transfer:
         if self._P is not None:
             return self._P.mv(xc)
         mid = torch.sum(self.mid_w * xc[self.mid_dofs], dim=1)
-        return torch.cat([xc, mid])
+        return mid if self._relabeled else torch.cat([xc, mid])
 
     def restrict(self, rf: torch.Tensor) -> torch.Tensor:
         return self._PT.mv(rf)
 
     def inject(self, xf: torch.Tensor) -> torch.Tensor:
-        """Fine P2 -> coarse P2 by point evaluation (for the wind)."""
+        """Fine P2 -> coarse P2 by point evaluation (for the wind): the
+        leading slice, or a gather by the levels' ranks."""
+        if self._inj is not None:
+            return xf[self._inj]
         return xf[:self.n_coarse]
 
 
@@ -412,30 +474,44 @@ class VelocityHierarchy:
     """Per-level assemblers, P2 transfers and scalar Dirichlet masks for the
     velocity convection-diffusion block.  ``bc_markers``: facet markers
     carrying velocity Dirichlet BCs (values are irrelevant: multigrid
-    solves error equations)."""
+    solves error equations).  ``p1_mask``: the base level's mask at its
+    vertices in P1 ids, the p-coarse bottom level's (alignment padding
+    pinned)."""
 
     def __init__(self, hier: MeshHierarchy, nu: float, dtype, *, device,
                  bc_markers: Sequence[int] = (), fine_asm=None,
-                 block_size: Optional[int] = None):
+                 block_size: Optional[int] = None,
+                 reorder: Optional[bool] = None):
         from ..fem.assemble import NSAssembler
         self.hier, self.nu, self.dtype = hier, nu, dtype
+        self.reorder = _ordering(fine_asm, reorder)
         self.asms, self.masks, self.transfers = [], [], []
+        ranks = []
         last = len(hier.meshes) - 1
         for l, mesh in enumerate(hier.meshes):
             if l == last and fine_asm is not None:
                 asm = fine_asm
             else:
                 asm = NSAssembler(mesh, nu=nu, device=device, dtype=dtype,
-                                  quad_degree=4, block_size=block_size)
+                                  quad_degree=4, block_size=block_size,
+                                  reorder=self.reorder)
             self.asms.append(asm)
+            ranks.append(asm.W.V.rank if self.reorder else None)
             m = np.zeros(asm.n2)
             if bc_markers:
                 m[asm.W.V.facet_dofs(list(bc_markers))] = 1.0
             self.masks.append(torch.as_tensor(m, dtype=dtype, device=device))
+            if l == 0:
+                m1 = np.ones(asm.n1)
+                m1[_ids(asm.W.Q.rank if self.reorder else None,
+                        mesh.num_vertices)] = m[asm.W.V.vertex_dofs()]
+                self.p1_mask = torch.as_tensor(m1, dtype=dtype,
+                                               device=device)
             if l > 0:
                 self.transfers.append(P2Transfer(
                     hier.meshes[l - 1], mesh, dtype, device=device,
-                    block_size=block_size))
+                    block_size=block_size, rank_fine=ranks[l],
+                    rank_coarse=ranks[l - 1]))
 
 
 class PCoarseTransfer:
@@ -451,11 +527,18 @@ class PCoarseTransfer:
         mesh = W.mesh
         nv = mesh.num_vertices
         self.n_coarse, self.n_fine = W.Q.dim, W.V.dim
-        v = np.arange(nv, dtype=np.int64)
+        # new P2 ids of the vertices and edge midpoints, new P1 ids of the
+        # vertices (the identity in the natural order)
+        reordered = bool(W.reorder)
+        p2 = _ids(W.V.rank if reordered else None, self.n_fine)
+        q = _ids(W.Q.rank if reordered else None, nv)
         # one 0.5 weight per index slot: vertex rows hit their own P1 dof
         # twice, edge rows their two endpoints
-        IA = np.concatenate([v, mesh.edges[:, 0].astype(np.int64)])
-        IB = np.concatenate([v, mesh.edges[:, 1].astype(np.int64)])
+        IA, IB = np.empty(self.n_fine, np.int64), np.empty(self.n_fine,
+                                                           np.int64)
+        IA[p2[:nv]] = IB[p2[:nv]] = q
+        IA[p2[nv:]] = q[mesh.edges[:, 0]]
+        IB[p2[nv:]] = q[mesh.edges[:, 1]]
         self._IA = torch.as_tensor(IA, device=device)
         self._IB = torch.as_tensor(IB, device=device)
         self._PT = _ell_restriction(
@@ -516,7 +599,7 @@ def _velocity_gmg_plan(vh: VelocityHierarchy, d: int):
 def _pcoarse_mask(vh: VelocityHierarchy, d: int) -> torch.Tensor:
     """Stacked P1 Dirichlet mask of the p-coarse bottom level: the base
     level's P2 mask at the vertices."""
-    return torch.cat([vh.masks[0][:vh.asms[0].n1]] * d)
+    return torch.cat([vh.p1_mask] * d)
 
 
 def _velocity_level_masks(vh: VelocityHierarchy, bc_mask_u_fine, d: int):

@@ -139,6 +139,15 @@ class OseenSolver:
                       if self.has_p_pad else None)
         self.ap_hierarchy = ap_hierarchy
         self.velocity_hierarchy = velocity_hierarchy
+        for kind, h, method in (
+                ("pressure", ap_hierarchy, config.pcd.ap.method),
+                ("velocity", velocity_hierarchy, config.velocity.method)):
+            if method == "gmg" and h is not None and \
+                    h.reorder != bool(asm.W.reorder):
+                raise ValueError(
+                    f"{kind} GMG ordering mismatch: the assembler has "
+                    f"reorder={bool(asm.W.reorder)}, the hierarchy "
+                    f"{h.reorder}")
         self.dist = LOCAL
         self._build_subsolves()
 

@@ -19,12 +19,17 @@ the count of full solves begun in this process, :func:`request`), and with
 + name)``, so the span stands in the profiler's trace beside the kernels
 its host code launched, on the profiler's clock.
 
-:data:`counts` are always on: ``host_syncs`` is added to at every point of
-the solve path where the host waits for the device (a read of a device
-value to the host, a copy of host values to the device, the implicit
-check of ``torch.linalg.inv``), counted where it is written whatever the
-device; ``true_residuals`` at every true (f64) residual evaluation of a
-linear solve.  ``fenapack_tpu_torch.measure.host_counts`` reads them.
+:data:`counts`: ``host_syncs`` is added to at every point of the solve path
+where the host waits for the device (a read of a device value to the host,
+a copy of host values to the device, the implicit check of
+``torch.linalg.inv``), counted where it is written whatever the device;
+``true_residuals`` at every true (f64) residual evaluation of a linear
+solve.  Both are always on.  ``bsr_slots`` and ``bsr_nnz`` count only
+inside a :func:`tracing` block (:func:`bsr_read`): at every BSR product,
+the tile slots it streams (``nb * m * b * b``, zero fill included) and
+its operator's own nonzeros; their ratio is the zero fill per nonzero
+that the products read.  ``fenapack_tpu_torch.measure.host_counts`` reads
+them.
 """
 from __future__ import annotations
 
@@ -100,13 +105,22 @@ def device_trace(trace_dir: Optional[str]):
 # ---- counters ---------------------------------------------------------- #
 
 # host waits for the device and true residuals of the solve path, since the
-# process started
-counts = {"host_syncs": 0, "true_residuals": 0}
+# process started; the BSR products' tile slots and nonzeros, while tracing
+counts = {"host_syncs": 0, "true_residuals": 0, "bsr_slots": 0,
+          "bsr_nnz": 0}
 
 
 def host_sync(n: int = 1) -> None:
     """Count ``n`` host waits for the device, at the site that waits."""
     counts["host_syncs"] += n
+
+
+def bsr_read(slots: int, nnz: int) -> None:
+    """Count one BSR product's stored tile slots and its operator's
+    nonzeros, inside a :func:`tracing` block only."""
+    if _recorder is not None:
+        counts["bsr_slots"] += slots
+        counts["bsr_nnz"] += nnz
 
 
 # ---- spans ------------------------------------------------------------- #

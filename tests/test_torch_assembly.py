@@ -1,6 +1,6 @@
 """Assembly of the PyTorch port against the JAX package at level 0 with the
 main path's layout (BSR b = 32, high-precision operators in the block
-layout, natural ordering).  In f64 the two sides differ only in summation
+layout, RCM dof order: the block layout's default in both packages).  In f64 the two sides differ only in summation
 order: every comparison holds at 1e-12 relative (max-norm)."""
 import numpy as np
 import pytest
@@ -32,7 +32,8 @@ def pair():
     ta = NSAssembler(tmesh.backward_step_mesh(0), NU, device="cpu",
                      block_size=32, hi_block=True)
     ja = JAsm(jmesh.backward_step_mesh(0), NU, dtype=jnp.float64,
-              block_size=32, reorder=False, hi_block=True)
+              block_size=32, hi_block=True)
+    assert ta.W.reorder and ja.W.reorder
     rng = np.random.default_rng(7)
     w = rng.standard_normal(2 * ta.n2)
     p = rng.standard_normal(ta.n1)
@@ -143,7 +144,7 @@ def test_f32_level_assembler_matches_jax():
     ta = NSAssembler(tmesh.backward_step_mesh(0), NU, device="cpu",
                      dtype=torch.float32, quad_degree=4, block_size=32)
     ja = JAsm(jmesh.backward_step_mesh(0), NU, dtype=jnp.float32,
-              quad_degree=4, block_size=32, reorder=False)
+              quad_degree=4, block_size=32)
     w = np.random.default_rng(2).standard_normal(2 * ta.n2)
     w = w.astype(np.float32)
     vt = ta.picard_matrix_values(torch.as_tensor(w))
@@ -162,7 +163,7 @@ def test_p1_only_assembler_matches_jax():
     ta = NSAssembler(tmesh.backward_step_mesh(1), 1.0, device="cpu",
                      quad_degree=2, block_size=32, p1_only=True)
     ja = JAsm(jmesh.backward_step_mesh(1), 1.0, dtype=jnp.float64,
-              quad_degree=2, block_size=32, reorder=False, p1_only=True)
+              quad_degree=2, block_size=32, p1_only=True)
     assert ta.const.L is None and ta.pat_p2 is None
     for name in ("Ap", "Mp"):
         assert _rel(getattr(ta.const, name).tiles.numpy(),

@@ -23,8 +23,9 @@ def _rel(a, b):
 
 def _jax_solver(level, dtype):
     """The JAX package's main-path solver (``bench.py::build`` with the
-    f64 BSR operators in place of the df32 Pallas matvec and an f64 Krylov
-    basis in place of the double-single one)."""
+    f64 BSR operators in place of the df32 Pallas matvec, an f64 Krylov
+    basis in place of the double-single one, and every level in its RCM
+    order, as the port's main path runs)."""
     pytest.importorskip("jax")
     import jax.numpy as jnp
     from fenapack_tpu.fem import mesh as jmesh
@@ -36,7 +37,7 @@ def _jax_solver(level, dtype):
     pdt = jnp.dtype(dtype)
     hier = gmg.build_hierarchy(jmesh.backward_step_mesh(0), level)
     asm = NSAssembler(hier.fine, 0.02, dtype=jnp.float64, block_size=32,
-                      reorder=False, hi_block=True,
+                      hi_block=True,
                       block_dtype=pdt if dtype == "float32" else None)
 
     def inflow(x):
@@ -55,7 +56,7 @@ def _jax_solver(level, dtype):
         "velocity.smooth_iters": 3, "velocity.cycles": 2,
         "pcd.ap.method": "gmg"})
     ap_h = gmg.PressureHierarchy(hier, pdt, pcd_markers=[jmesh.OUTFLOW],
-                                 block_size=32, fine_asm=asm)
+                                 block_size=32, reorder=True, fine_asm=asm)
     v_h = gmg.VelocityHierarchy(hier, 0.02, pdt,
                                 bc_markers=[jmesh.WALL, jmesh.INFLOW],
                                 fine_asm=asm, block_size=32)

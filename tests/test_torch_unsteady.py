@@ -120,7 +120,7 @@ def test_mass2_values_match_jax(asm_pair):
     assert at.mass2(hi=True) is at.const_hi.M2
     # a block-sparse set keeps no M2 and assembles it on demand
     ab = ft.NSAssembler(at.mesh, 1e-3, device="cpu", block_size=8,
-                        hi_block=True)
+                        hi_block=True, reorder=False)
     assert ab.const.M2 is None and ab.const_hi.M2 is None
     x = torch.as_tensor(np.random.default_rng(1).standard_normal(at.n2))
     assert _rel(ab.mass2(hi=False).mv(x).numpy(),
