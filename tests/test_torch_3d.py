@@ -29,8 +29,6 @@ import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 
 torch = pytest.importorskip("torch")
-# test workers share the machine's cores: one PyTorch thread each
-torch.set_num_threads(1)
 
 from fenapack_tpu_torch import step3d
 from fenapack_tpu_torch.fem import mesh3d as tmesh3d
@@ -132,11 +130,19 @@ def test_block_product_d3_matches_jax_composition(asm_pair):
 @pytest.fixture(scope="module")
 def brm2_pair():
     """Picard with BRM2 and dense subsolves to 1e-6 on the level-0 duct,
-    in both packages (``tests/test_3d.py::test_duct_solve_physics``)."""
+    in both packages (``tests/test_3d.py::test_duct_solve_physics``).  The
+    JAX package's dense inverses run on a LAPACK at one thread per core,
+    the width it takes unlimited: on one thread their last bits move counts
+    2-4 by one."""
+    from threadpoolctl import threadpool_limits
+
     JDuct = _jax_duct()
     rt = Duct3D(level=0, nu=NU, device="cpu").solver("BRM2").solve(
         rtol=1e-6, max_steps=15)
-    rj = JDuct(level=0, nu=NU).solver("BRM2").solve(rtol=1e-6, max_steps=15)
+    with threadpool_limits(limits=len(os.sched_getaffinity(0)),
+                           user_api="blas"):
+        rj = JDuct(level=0, nu=NU).solver("BRM2").solve(rtol=1e-6,
+                                                        max_steps=15)
     return rt, rj
 
 

@@ -9,8 +9,6 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-# test workers share the machine's cores: one PyTorch thread each
-torch.set_num_threads(1)
 
 from fenapack_tpu_torch import interop
 from fenapack_tpu_torch.ops import bsr_spmv as K

@@ -29,8 +29,6 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-# test workers share the machine's cores: one PyTorch thread each
-torch.set_num_threads(1)
 
 from fenapack_tpu_torch import custom_forms
 from fenapack_tpu_torch.models import StepFlow2D
@@ -349,7 +347,6 @@ def test_custom_coefficients_body_force():
 
 def test_entry_point_converges_on_the_cpu():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
-    env["OMP_NUM_THREADS"] = "1"
     proc = subprocess.run(
         [sys.executable, "-m", "fenapack_tpu_torch.custom_forms", "-l", "0",
          "--rtol", "1e-3", "--device", "cpu"],

@@ -17,8 +17,6 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-# test workers share the machine's cores: one PyTorch thread each
-torch.set_num_threads(1)
 
 import fenapack_tpu_torch as ft
 from fenapack_tpu_torch import cylinder

@@ -13,19 +13,10 @@ them and equal the JAX package's composition of Pallas ELL products
 orders).  On a CUDA GPU only: the kernel against the plain version at
 ragged lengths, and repeats equal bit for bit.
 """
-import contextlib
-
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-# test workers share the machine's cores: one PyTorch thread each
-torch.set_num_threads(1)
-
-try:
-    from threadpoolctl import threadpool_limits
-except ImportError:              # the limit below only saves time
-    threadpool_limits = None
 
 from fenapack_tpu_torch import measure
 from fenapack_tpu_torch.fem import mesh as tmesh
@@ -43,13 +34,6 @@ PAIRS = {"p2": ("V", "V"), "p1": ("Q", "Q"), "div": ("Q", "V"),
          "divT": ("V", "Q")}
 MESHES = {"2d-l1": lambda: tmesh.cavity_mesh(1),
           "3d-l0": lambda: tmesh3d.backward_step_mesh3d(0, length=3.0)}
-
-
-@pytest.fixture(autouse=True)
-def _one_blas_thread():
-    with (threadpool_limits(limits=1) if threadpool_limits
-          else contextlib.nullcontext()):
-        yield
 
 
 @pytest.fixture

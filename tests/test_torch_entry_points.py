@@ -20,7 +20,6 @@ package run on the same inputs on the CPU in f64 (``step3d`` and
     demo's and states within 1e-8; the ``--ls direct`` configuration equal
     to the demo's.
 """
-import contextlib
 import dataclasses
 import os
 import sys
@@ -29,12 +28,6 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-# test workers share the machine's cores: one PyTorch thread each
-torch.set_num_threads(1)
-try:
-    from threadpoolctl import threadpool_limits
-except ImportError:              # the limit below only saves time
-    threadpool_limits = None
 
 from fenapack_tpu_torch import cylinder
 from fenapack_tpu_torch.fem import mesh as tmesh
@@ -55,16 +48,6 @@ INTENDED = {"krylov.hi_krylov": (True, False)}
 # the JAX package's TPU workarounds, not carried by the port
 JAX_ONLY = {"krylov.split_assembly", "krylov.df32_matvec", "krylov.ds_basis",
             "pcd.ap.smoother", "pcd.mp.smoother"}
-
-
-@pytest.fixture(autouse=True)
-def _one_host_thread():
-    """numpy's and scipy's BLAS (the host-side setup of both packages) and
-    OpenMP on one thread as well: spinning BLAS threads slow a test many
-    times over while the other workers hold the cores."""
-    with (threadpool_limits(limits=1) if threadpool_limits
-          else contextlib.nullcontext()):
-        yield
 
 
 def _rel(a, b):

@@ -10,7 +10,6 @@ demos' surface, against the JAX package run on the same inputs on the CPU
     continuation to Re 200: every count equal to the JAX demo's path,
     states within 1e-8; the VTK file parses.
 """
-import contextlib
 import os
 import sys
 
@@ -18,28 +17,12 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-# test workers share the machine's cores: one PyTorch thread each
-torch.set_num_threads(1)
-try:
-    from threadpoolctl import threadpool_limits
-except ImportError:              # the limit below only saves time
-    threadpool_limits = None
 
 from fenapack_tpu_torch import cavity, step3d
 from fenapack_tpu_torch.fem import mesh as tmesh
 from fenapack_tpu_torch.utils import default_dtype
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(autouse=True)
-def _one_host_thread():
-    """numpy's and scipy's BLAS (the host-side setup of both packages) and
-    OpenMP on one thread as well: spinning BLAS threads slow a test many
-    times over while the other workers hold the cores."""
-    with (threadpool_limits(limits=1) if threadpool_limits
-          else contextlib.nullcontext()):
-        yield
 
 
 def _rel(a, b):

@@ -9,8 +9,6 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-# test workers share the machine's cores: one PyTorch thread each
-torch.set_num_threads(1)
 
 from fenapack_tpu_torch import native as tnative
 from fenapack_tpu_torch.fem import dofmap as tdof
@@ -190,3 +188,23 @@ def test_import_does_not_load_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+def test_conftest_pins_torch_to_one_thread_beside_eight_devices():
+    """The repository's ``conftest.py`` pins torch, and the environment
+    every process of the run inherits, to one thread; XLA keeps its 8 CPU
+    devices."""
+    assert torch.get_num_threads() == 1
+    assert all(os.environ[v] == "1" for v in (
+        "OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS"))
+    assert "--xla_force_host_platform_device_count=8" in os.environ[
+        "XLA_FLAGS"].split()
+
+
+def test_conftest_pins_blas_and_openmp_to_one_thread():
+    threadpoolctl = pytest.importorskip("threadpoolctl")
+    import scipy.linalg  # noqa: F401  (loads scipy's own BLAS)
+
+    pools = threadpoolctl.threadpool_info()
+    assert {p["user_api"] for p in pools} >= {"blas", "openmp"}
+    assert [p["num_threads"] for p in pools] == [1] * len(pools)

@@ -15,8 +15,6 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-# test workers share the machine's cores: one PyTorch thread each
-torch.set_num_threads(1)
 
 from fenapack_tpu_torch.fem import dofmap as tdof
 from fenapack_tpu_torch.fem import elements3d as tel3

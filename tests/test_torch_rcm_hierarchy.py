@@ -8,18 +8,10 @@ Every level's ranks and tile layouts are equal; the transfers (as dense
 matrices), the level operators, the wind's injection and the velocity
 V-cycle's bottom inverse agree to 1e-12; three Picard + Anderson(6) steps
 take the same FGMRES counts."""
-import contextlib
-
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-# test workers share the machine's cores: one PyTorch thread each
-torch.set_num_threads(1)
-try:
-    from threadpoolctl import threadpool_limits
-except ImportError:              # the limit below only saves time
-    threadpool_limits = None
 
 from fenapack_tpu_torch import bench
 from fenapack_tpu_torch.fem import mesh as tmesh
@@ -27,15 +19,6 @@ from fenapack_tpu_torch.solvers import gmg
 
 TOL = 1e-12
 STEPS = 3
-
-
-@pytest.fixture(autouse=True)
-def _one_host_thread():
-    """numpy's and scipy's BLAS on one thread too: spinning BLAS threads
-    slow a test many times over while the other workers hold the cores."""
-    with (threadpool_limits(limits=1) if threadpool_limits
-          else contextlib.nullcontext()):
-        yield
 
 
 def _rel(a, b):

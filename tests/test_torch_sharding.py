@@ -14,8 +14,6 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-# test workers share the machine's cores: one PyTorch thread each
-torch.set_num_threads(1)
 
 from fenapack_tpu_torch import spmd_demo
 from fenapack_tpu_torch.fem import mesh as tmesh

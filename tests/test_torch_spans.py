@@ -8,7 +8,6 @@ import collections
 import pytest
 
 torch = pytest.importorskip("torch")
-torch.set_num_threads(1)
 
 from fenapack_tpu_torch import bench, measure
 from fenapack_tpu_torch.utils import timing

@@ -27,8 +27,6 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-# test workers share the machine's cores: one PyTorch thread each
-torch.set_num_threads(1)
 
 from fenapack_tpu_torch.models import Channel2D, StepFlow2D
 from fenapack_tpu_torch.solvers import gmg as tgmg
