@@ -176,7 +176,11 @@ class BlockELL:
         """y = A @ x for x of shape (n_cols,) or (n_cols, k)."""
         with span("spmv.bsr"):
             if self.nnz is not None:
-                bsr_read(self.tiles.numel(), self.nnz)
+                t = "f64" if self.tiles.dtype == torch.float64 else "f32"
+                k = 1 if x.dim() == 1 else x.shape[1]
+                bsr_read(slots=self.tiles.numel(), nnz=self.nnz,
+                         **{"nnz_" + t: self.nnz,
+                            "vec_" + t: (self.n_rows + self.n_cols) * k})
             return bsr_spmv(self.nbr, self.tiles, x.contiguous(),
                             self.n_rows, self.n_cols)
 

@@ -37,7 +37,7 @@ from ..fem import forms as F
 from ..fem.dofmap import DirichletBC, TaylorHood, merge_bcs
 from ..ops import subsolve
 from .config import SolverConfig
-from .fieldsplit import make_fieldsplit_upper
+from .fieldsplit import PCGraphs, make_fieldsplit_upper
 from .krylov import FGMRESResult, fgmres
 from .pcd import make_pcd_apply
 
@@ -199,6 +199,7 @@ class PCDKrylovSolver:
         self.bc_mask_u = torch.as_tensor(bc_mask_u, dtype=dt, device=dev)
         self.bc_vals_u = torch.as_tensor(bc_vals_u, dtype=dt, device=dev)
         self.free_u = 1.0 - self.bc_mask_u
+        self._pc_graphs = PCGraphs.for_layout(self.free_u.device, 1)
 
         pcd_dofs = np.concatenate(
             [bc.dofs for bc in assembler.bcs_pcd]) if assembler.bcs_pcd \
@@ -374,7 +375,7 @@ class PCDKrylovSolver:
             bt_mv = self.asm.fc.pattern("u", "p").matrix(
                 blocks["up"].to(self.dtype)).mv
         pc = make_fieldsplit_upper(self.n_u, a_solve, schur, bt_mv,
-                                   self.free_u)
+                                   self.free_u, self._pc_graphs)
         return matvec, pc
 
     def solve(self, x_lin: torch.Tensor, b: torch.Tensor) -> FGMRESResult:

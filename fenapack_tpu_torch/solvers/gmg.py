@@ -248,21 +248,29 @@ def make_vcycle(matvecs: Sequence[Callable], dinvs: Sequence[torch.Tensor],
         m = masks[lvl]
         return x * (1.0 - m) if m is not None else x
 
-    def cycle(lvl: int, b: torch.Tensor) -> torch.Tensor:
-        if lvl == 0:
-            return coarse_solve(b)
-        t = transfers[lvl - 1]
-        x = smooth(lvl, b, torch.zeros_like(b))
-        r = chop(b - matvecs[lvl](x), lvl)
-        ec = cycle(lvl - 1, chop(t.restrict(r), lvl - 1))
-        x = x + chop(t.prolong(ec), lvl)
-        return smooth(lvl, b, x)
+    def cycle(b: torch.Tensor) -> torch.Tensor:
+        # a loop, not a recursive closure: a closure that calls itself is a
+        # reference cycle, which would hold the levels' operators after the
+        # V-cycle is dropped until Python's cyclic collector ran
+        down = []
+        for lvl in range(L - 1, 0, -1):
+            t = transfers[lvl - 1]
+            x = smooth(lvl, b, torch.zeros_like(b))
+            r = chop(b - matvecs[lvl](x), lvl)
+            down.append((b, x))
+            b = chop(t.restrict(r), lvl - 1)
+        e = coarse_solve(b)
+        for lvl in range(1, L):
+            b, x = down.pop()
+            x = x + chop(transfers[lvl - 1].prolong(e), lvl)
+            e = smooth(lvl, b, x)
+        return e
 
     def solve(b: torch.Tensor) -> torch.Tensor:
-        x = cycle(L - 1, b)
+        x = cycle(b)
         for _ in range(cycles - 1):
             # extra cycles as a stationary iteration
-            x = x + cycle(L - 1, b - matvecs[L - 1](x))
+            x = x + cycle(b - matvecs[L - 1](x))
         return x
     return solve
 

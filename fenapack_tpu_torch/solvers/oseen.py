@@ -57,7 +57,7 @@ from ..ops.sparse import ELL
 from .config import SolverConfig, SubsolveConfig
 from ..ops.dist import LOCAL, zero_mean
 from ..utils import timing
-from .fieldsplit import make_fieldsplit_upper
+from .fieldsplit import PCGraphs, make_fieldsplit_upper
 from .krylov import (FGMRESResult, empty_recycle, fgmres, fgmres_dr,
                      refresh_recycle)
 from .pcd import make_pcd_apply
@@ -149,6 +149,8 @@ class OseenSolver:
                     f"reorder={bool(asm.W.reorder)}, the hierarchy "
                     f"{h.reorder}")
         self.dist = LOCAL
+        self._pc_graphs = PCGraphs.for_layout(self.free_u.device,
+                                              self.dist.size)
         self._build_subsolves()
 
     @staticmethod
@@ -185,6 +187,7 @@ class OseenSolver:
         has sharded the assembler already).  Rebuilds the subsolves; the
         masks stay full-length and each closure takes the rank's rows."""
         self.dist = dist
+        self._pc_graphs = PCGraphs.for_layout(self.free_u.device, dist.size)
         self._build_subsolves()
 
     # -------------------------------------------------------------- #
@@ -416,7 +419,8 @@ class OseenSolver:
             return torch.cat([c.DT[a].mv(pg) for a in range(self.d)])
         return make_fieldsplit_upper(self.n_u // dist.size, a_solve,
                                      lambda r_p: pcd(kp, r_p), bt_mv,
-                                     dist.rows(self.free_u, "u"))
+                                     dist.rows(self.free_u, "u"),
+                                     self._pc_graphs)
 
     def _compute_pipeline(self, wind: torch.Tensor):
         """``(matvec, pc)`` in the compute dtype at ``wind``, from one
@@ -433,14 +437,12 @@ class OseenSolver:
     def _krylov(self, matvec, pc, b: torch.Tensor, rtol: float, rec=None,
                 atol: float = 0.0):
         """One FGMRES solve of ``b`` in b's dtype to ``max(rtol |b|,
-        atol)`` around the
-        compute-dtype ``pc`` (cast to the compute dtype and back around each
-        apply when b's dtype differs); with a recycle space ``rec``
-        GCRO-DR (the caller re-binds ``rec`` to ``matvec``).  Every solve of
-        this class goes through here.  Returns ``(result, rec)``."""
+        atol)`` around the compute-dtype pipeline ``pc`` (which casts its
+        input to the compute dtype and its output back); with a recycle
+        space ``rec`` GCRO-DR (the caller re-binds ``rec`` to ``matvec``).
+        Every solve of this class goes through here.  Returns ``(result,
+        rec)``."""
         kcfg = self.config.krylov
-        if b.dtype != self.dtype:
-            pc = (lambda p: lambda r: p(r.to(self.dtype)).to(b.dtype))(pc)
         kw = dict(maxiter=kcfg.maxiter, rtol=rtol, atol=atol,
                   reorth_eta=kcfg.reorth_eta)
         if rec is None:

@@ -24,12 +24,18 @@ where the host waits for the device (a read of a device value to the host,
 a copy of host values to the device, the implicit check of
 ``torch.linalg.inv``), counted where it is written whatever the device;
 ``true_residuals`` at every true (f64) residual evaluation of a linear
-solve.  Both are always on.  ``bsr_slots`` and ``bsr_nnz`` count only
-inside a :func:`tracing` block (:func:`bsr_read`): at every BSR product,
-the tile slots it streams (``nb * m * b * b``, zero fill included) and
-its operator's own nonzeros; their ratio is the zero fill per nonzero
-that the products read.  ``fenapack_tpu_torch.measure.host_counts`` reads
-them.
+solve.  Both are always on.  The ``bsr_`` counters count only inside a
+:func:`tracing` block (:func:`bsr_read`): at every BSR product,
+``bsr_slots`` the tile slots it streams (``nb * m * b * b``, zero fill
+included) and ``bsr_nnz`` its operator's own nonzeros, whose ratio is the
+zero fill per nonzero that the products read; by the tiles' dtype
+(``f32``, ``f64``), ``bsr_nnz_<dtype>`` the same nonzeros and
+``bsr_vec_<dtype>`` the entries of its input and output vectors
+(``(n_rows + n_cols) * k``), from which a reader reckons the least bytes
+the products move.  ``pc_applies`` counts every apply of a fieldsplit
+pipeline and ``pc_graph_replays`` those served by replaying its CUDA graphs
+(:mod:`..solvers.fieldsplit`).  ``fenapack_tpu_torch.measure.host_counts``
+reads them.
 """
 from __future__ import annotations
 
@@ -105,9 +111,14 @@ def device_trace(trace_dir: Optional[str]):
 # ---- counters ---------------------------------------------------------- #
 
 # host waits for the device and true residuals of the solve path, since the
-# process started; the BSR products' tile slots and nonzeros, while tracing
+# process started; the BSR products' tile slots, nonzeros and vector
+# entries, while tracing; the fieldsplit applies and those served by graph
+# replay
 counts = {"host_syncs": 0, "true_residuals": 0, "bsr_slots": 0,
-          "bsr_nnz": 0}
+          "bsr_nnz": 0, "bsr_nnz_f32": 0, "bsr_vec_f32": 0,
+          "bsr_nnz_f64": 0, "bsr_vec_f64": 0, "pc_applies": 0,
+          "pc_graph_replays": 0}
+_all_reads = False
 
 
 def host_sync(n: int = 1) -> None:
@@ -115,12 +126,25 @@ def host_sync(n: int = 1) -> None:
     counts["host_syncs"] += n
 
 
-def bsr_read(slots: int, nnz: int) -> None:
-    """Count one BSR product's stored tile slots and its operator's
-    nonzeros, inside a :func:`tracing` block only."""
-    if _recorder is not None:
-        counts["bsr_slots"] += slots
-        counts["bsr_nnz"] += nnz
+def bsr_read(**reads: int) -> None:
+    """Add one BSR product's reads (or a graph replay's) to the counters
+    ``bsr_<name>``, inside a :func:`tracing` or :func:`all_reads` block
+    only."""
+    if _recorder is not None or _all_reads:
+        for name, n in reads.items():
+            counts["bsr_" + name] += n
+
+
+@contextmanager
+def all_reads():
+    """:func:`bsr_read` counts outside a :func:`tracing` block too, inside
+    this one: a graph capture takes what its replays will read."""
+    global _all_reads
+    prev, _all_reads = _all_reads, True
+    try:
+        yield
+    finally:
+        _all_reads = prev
 
 
 # ---- spans ------------------------------------------------------------- #

@@ -2,7 +2,8 @@
 operators and transfers (``bench.build``, every level in its RCM order)
 store fewer tile slots per nonzero than the natural order would; every ELL
 assembler and hierarchy keeps the natural order; the tracing counters
-``bsr_slots`` / ``bsr_nnz`` add what a BSR product reads, and only while
+``bsr_slots`` / ``bsr_nnz`` (and by dtype ``bsr_nnz_<dtype>`` /
+``bsr_vec_<dtype>``) add what a BSR product reads, and only while
 tracing."""
 import numpy as np
 import pytest
@@ -115,6 +116,18 @@ def test_bsr_counters_add_one_products_read(main_path):
     c2 = measure.host_counts()
     assert c2["bsr_slots"] - c1["bsr_slots"] == 2 * pat.nb * pat.m * 32 * 32
     assert c2["bsr_nnz"] - c1["bsr_nnz"] == 2 * pat.nnz
+    # by the tiles' dtype: the nonzeros and the vectors' entries (k = 1, 3)
+    assert c2["bsr_nnz_f32"] - c1["bsr_nnz_f32"] == 2 * pat.nnz
+    assert (c2["bsr_vec_f32"] - c1["bsr_vec_f32"]
+            == 4 * (pat.n_rows + pat.n_cols))
+    assert c2["bsr_nnz_f64"] == c1["bsr_nnz_f64"]
+    with timing.tracing():
+        op.with_vals(op.tiles.double()).mv(x.double())
+    c3 = measure.host_counts()
+    assert c3["bsr_nnz_f64"] - c2["bsr_nnz_f64"] == pat.nnz
+    assert c3["bsr_vec_f64"] - c2["bsr_vec_f64"] == pat.n_rows + pat.n_cols
+    assert c3["bsr_nnz_f32"] == c2["bsr_nnz_f32"]
+    c2 = c3
     # an ELL product and a BSR matrix built without its pattern's count
     # add nothing
     ell = SparsityPattern(np.arange(4), np.arange(4), 4, 4, device="cpu")
