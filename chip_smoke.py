@@ -895,19 +895,19 @@ def main():
 
     # ---- 7. the cavity slice at level 4 on the card --------------------- #
     t0 = time.perf_counter()
-    bsr_spmv.reset_launches()
-    ell_spmv.reset_launches()
+    measure.reset_launches()
     w, stages = None, []
     for Re in cavity.RE:
         ts = time.perf_counter()
         if Re != cavity.RE[0]:
             nl = cavity.build(cavity.LEVEL, Re, device=dev, hier=hier)
-        before = (ell_spmv.launches["f64"], ell_spmv.block_launches["f64"])
+        before = measure.launch_counts()
         r = nl.solve(w, rtol=cavity.RTOL, max_steps=cavity.MAX_STEPS)
         torch.cuda.synchronize()
         w = r.w
-        k3 = (ell_spmv.launches["f64"] - before[0],
-              ell_spmv.block_launches["f64"] - before[1])
+        after = measure.launch_counts()
+        k3 = tuple(after[k]["f64"] - before[k]["f64"]
+                   for k in ("ell_spmv", "ell_block_spmv"))
         stages.append(r)
         print(f"[cavity] Re {Re:g}: steps {len(r.linear_iters)} iters "
               f"{r.linear_iters} (cap {cavity.CFG['krylov.maxiter']}); "
@@ -924,11 +924,12 @@ def main():
                  f"{r.linear_iters}")
         _require(max(r.lin_rel) <= cavity.CFG["krylov.rtol"],
                  f"Re {Re}: linear true relative residuals {r.lin_rel}")
-    cavity_launches = {"ell_f64": ell_spmv.launches["f64"],
-                       "ell_f32": ell_spmv.launches["f32"],
-                       "ell_block_f64": ell_spmv.block_launches["f64"],
-                       "ell_block_f32": ell_spmv.block_launches["f32"],
-                       "bsr": dict(bsr_spmv.launches)}
+    launched = measure.launch_counts()
+    cavity_launches = {"ell_f64": launched["ell_spmv"]["f64"],
+                       "ell_f32": launched["ell_spmv"]["f32"],
+                       "ell_block_f64": launched["ell_block_spmv"]["f64"],
+                       "ell_block_f32": launched["ell_block_spmv"]["f32"],
+                       "bsr": launched["bsr_spmv"]}
     n2 = nl.asm.n2
     umax = float(w[:2 * n2].abs().max())
     div = float(sum(nl.asm.const.D[a].mv(w[a * n2:(a + 1) * n2])
@@ -1089,9 +1090,10 @@ def main():
     done("cylinder-kernels", t0)
 
     def k3_counts():
-        return (ell_spmv.launches["f64"], ell_spmv.block_launches["f64"],
-                ell_spmv.launches["f32"], ell_spmv.block_launches["f32"],
-                sum(bsr_spmv.launches.values()))
+        c = measure.launch_counts()
+        return (c["ell_spmv"]["f64"], c["ell_block_spmv"]["f64"],
+                c["ell_spmv"]["f32"], c["ell_block_spmv"]["f32"],
+                sum(c["bsr_spmv"].values()))
 
     def max_div(asm, w):
         n2 = asm.n2
@@ -1100,8 +1102,7 @@ def main():
 
     # ---- 10. DFG 2D-1 at level 2 on the card ---------------------------- #
     t0 = time.perf_counter()
-    bsr_spmv.reset_launches()
-    ell_spmv.reset_launches()
+    measure.reset_launches()
     maxiter = cnl.oseen.config.krylov.maxiter
     r = cnl.solve(rtol=cylinder.RTOL)
     torch.cuda.synchronize()
@@ -1143,8 +1144,7 @@ def main():
 
     # ---- 11. DFG 2D-2 at level 2: 40 BDF2 steps on the card ------------- #
     t0 = time.perf_counter()
-    bsr_spmv.reset_launches()
-    ell_spmv.reset_launches()
+    measure.reset_launches()
     marks = [(time.perf_counter(),) + k3_counts()]
     r = cus.solve_fused(
         CYL_STEPS * CYL_DT, functional=cylinder.functional(cus.asm, CYL_DT),
@@ -1278,8 +1278,7 @@ def main():
 
     # ---- 14. config 5 at level 2: Re 2000 and Re 5000 on the card ------- #
     t0 = time.perf_counter()
-    bsr_spmv.reset_launches()
-    ell_spmv.reset_launches()
+    measure.reset_launches()
     cap = highre.CFG["krylov.maxiter"]
     for nu, smoother, rtol_lin in HR_RUNS:
         ts = time.perf_counter()
@@ -1472,8 +1471,7 @@ def main():
 
     # ---- 18. config 4 at level 3 (760,852 dofs) on the card ------------- #
     t0 = time.perf_counter()
-    bsr_spmv.reset_launches()
-    ell_spmv.reset_launches()
+    measure.reset_launches()
     step_s = []
     last = [time.perf_counter()]
 
@@ -1566,7 +1564,7 @@ def main():
           f"dense velocity and Ap inverses, Chebyshev-4 Mp: setup "
           f"{cf_setup:.3f} s; step,|F|,iters,lin_rel,seconds,"
           f"inverse_seconds:", flush=True)
-    bsr_spmv.reset_launches()        # ``run`` sets the K3 counts to 0
+    measure.reset_launches()         # ``run`` does so too
     cf = custom_forms.run(cs, rtol=custom_forms.RTOL,
                           out=lambda l: print(f"[custom-forms] {l}",
                                               flush=True))
@@ -1716,14 +1714,14 @@ def main():
 
     def bsr_run(name, fn):
         torch.cuda.synchronize()
-        bsr_spmv.reset_launches()
-        ell_spmv.reset_launches()
+        measure.reset_launches()
         ts = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - ts
-        ir_paths[name] = {k: bsr_spmv.launches[k] for k in ("f64", "f32")}
-        _require(sum(ell_spmv.launches.values()) == 0,
+        launched = measure.launch_counts()
+        ir_paths[name] = {k: launched["bsr_spmv"][k] for k in ("f64", "f32")}
+        _require(sum(launched["ell_spmv"].values()) == 0,
                  f"{name}: ELL launches on a BSR path")
         return out, wall, ir_paths[name]
 
@@ -1885,8 +1883,7 @@ def main():
         """``fn()`` with the launch counts set to 0 just before it and read
         into ``into[name]`` just after it."""
         torch.cuda.synchronize()
-        bsr_spmv.reset_launches()
-        ell_spmv.reset_launches()
+        measure.reset_launches()
         out = fn()
         torch.cuda.synchronize()
         into[name] = measure.launch_counts()

@@ -32,7 +32,7 @@ import torch
 from .fem import mesh as meshmod
 from .fem.assemble import NSAssembler
 from .fem.dofmap import DirichletBC
-from .ops import bsr_spmv
+from . import measure
 from .solvers import gmg
 from .solvers.config import SolverConfig, overrides
 from .solvers.nonlinear import NonlinearSolver
@@ -225,12 +225,12 @@ def run(level: int = 2, *, device):
     w0 = nl.initial_state().to(torch.float64)
     full(w0)                                         # warm-up
     _sync(device)
-    bsr_spmv.reset_launches()
+    measure.reset_launches()
     t0 = time.perf_counter()
     result = full(w0)
     _sync(device)
     wall = time.perf_counter() - t0
-    launches = dict(bsr_spmv.launches)
+    launches = measure.launch_counts()["bsr_spmv"]
     total = int(sum(result.iters))
     breakdown = stage_breakdown(nl, result.w, wall, total,
                                 n_apply=BREAKDOWN_APPLIES)

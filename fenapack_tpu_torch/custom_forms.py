@@ -123,7 +123,7 @@ def run(solver, rtol: float = RTOL, max_steps: int = MAX_STEPS,
     the dense-inverse seconds, the peak device memory of the solve and the
     memory allocated when it began (None on the CPU), and the K3 launches
     of the solve."""
-    from .ops import ell_spmv
+    from . import measure
     from .solvers.custom import PCDNewtonSolver
     newton = PCDNewtonSolver(solver)
     cuda = solver.device.type == "cuda"
@@ -134,7 +134,7 @@ def run(solver, rtol: float = RTOL, max_steps: int = MAX_STEPS,
                    else None)
     n_inv = len(solver.inverse_seconds)
     lin_rel, seconds = [], []
-    ell_spmv.reset_launches()
+    measure.reset_launches()
     t0 = last = time.perf_counter()
 
     def step(k, fnorm, result, rel, x):
@@ -161,8 +161,8 @@ def run(solver, rtol: float = RTOL, max_steps: int = MAX_STEPS,
                 peak_bytes=(torch.cuda.max_memory_allocated(solver.device)
                             if cuda else None),
                 start_bytes=start_bytes,
-                k3_launches=ell_spmv.launches["f64"]
-                + ell_spmv.launches["f32"])
+                k3_launches=sum(measure.launch_counts()["ell_spmv"]
+                                .values()))
 
 
 def main(argv=None):

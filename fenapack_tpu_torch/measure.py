@@ -20,20 +20,29 @@ L2_FLUSH_BYTES = 256 << 20
 
 
 def launch_counts() -> dict:
-    """The kernel launch counters of this process, by wrapper and dtype
-    (the plain versions count nothing, so a run on the CPU reads 0)."""
-    from .ops import bsr_spmv, ell_spmv
-    return {"bsr_spmv": dict(bsr_spmv.launches),
-            "ell_spmv": dict(ell_spmv.launches),
-            "ell_block_spmv": dict(ell_spmv.block_launches)}
+    """The kernel launch counters of this process, ``{wrapper: {dtype:
+    n}}`` (the plain versions count nothing, so a run on the CPU reads 0)."""
+    from .utils import timing
+    return {k: {t: timing.counts[f"{timing.LAUNCH}{k}.{t}"]
+                for t in ("f32", "f64")} for k in timing.KERNELS}
+
+
+def reset_launches() -> None:
+    """Set the kernel launch counters to 0."""
+    from .utils import timing
+    for k in timing.counts:
+        if k.startswith(timing.LAUNCH):
+            timing.counts[k] = 0
 
 
 def host_counts() -> dict:
     """The solve path's counters of this process (``host_syncs``,
-    ``true_residuals``; while tracing, ``bsr_slots`` and ``bsr_nnz``:
-    :data:`..utils.timing.counts`), counted on every device."""
+    ``true_residuals``, the BSR reads ``bsr_*``, ``pc_applies``,
+    ``pc_graph_replays``: :data:`..utils.timing.counts` less the launch
+    counters), counted on every device."""
     from .utils import timing
-    return dict(timing.counts)
+    return {k: n for k, n in timing.counts.items()
+            if not k.startswith(timing.LAUNCH)}
 
 
 def cuda_ms(fn, reps: int = 7, inner: int = 20) -> float:

@@ -6,7 +6,10 @@ BSR kernels of ``fenapack_tpu/ops/pallas_spmv.py`` that the main path runs:
 ``bsr_spmv_f32`` every f32 preconditioner product (K2, ``PallasBSRSpMV``).
 
 :func:`bsr_spmv` takes the plain PyTorch version only for tensors on the CPU.
-For a CUDA tensor it launches the kernel or raises; nothing falls back.
+For a CUDA tensor it launches the kernel or raises; nothing falls back.  A
+launch, and only a launch, adds to ``launch.bsr_spmv.<dtype>`` of
+:data:`..utils.timing.counts`, so a run on the card can show that its main
+path went through the kernels.
 
 The kernel library is built at first use by :mod:`.kernels`.
 """
@@ -17,20 +20,10 @@ import ctypes
 import torch
 
 from . import kernels
+from ..utils import timing
 
 MAX_RHS = 8                       # kMaxRhs in csrc/bsr_spmv.cu
 _NAMES = {torch.float32: "f32", torch.float64: "f64"}
-
-# Kernel launches per dtype ("f32" = K2, "f64" = K1).  Incremented only where
-# a kernel is launched, never by the plain version, so a run on the card can
-# show that its main path went through the kernels.
-launches = {"f32": 0, "f64": 0}
-
-
-def reset_launches():
-    for key in launches:
-        launches[key] = 0
-
 
 _fns = {}
 
@@ -114,5 +107,5 @@ def bsr_spmv(nbr: torch.Tensor, tiles: torch.Tensor, x: torch.Tensor,
             b, mb // b, n_rows, n_cols, k, stream)
     if rc != 0:
         raise RuntimeError(f"bsr_spmv_{name} launch failed: CUDA error {rc}")
-    launches[name] += 1
+    timing.launched("bsr_spmv", name)
     return y

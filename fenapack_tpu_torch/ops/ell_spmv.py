@@ -18,8 +18,10 @@ hold column 0 and value 0).  Two entry points:
     padding after them.
 
 Both take the plain PyTorch version only for tensors on the CPU.  For a
-CUDA tensor they launch the kernel or raise; nothing falls back.  The
-kernel library is built at first use by :mod:`.kernels`.
+CUDA tensor they launch the kernel or raise; nothing falls back.  A launch,
+and only a launch, adds to ``launch.<entry point>.<dtype>`` of
+:data:`..utils.timing.counts`.  The kernel library is built at first use
+by :mod:`.kernels`.
 """
 from __future__ import annotations
 
@@ -30,24 +32,11 @@ import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
 from . import kernels
+from ..utils import timing
 
 MAX_RHS = 8                       # kMaxRhs in csrc/ell_spmv.cu
 MAX_DIM = 3                       # kMaxDim in csrc/ell_spmv.cu
 _NAMES = {torch.float32: "f32", torch.float64: "f64"}
-
-# Kernel launches per dtype, of the single product and of the block
-# product.  Incremented only where the kernel is launched, never by the
-# plain version, so a run on the card can show that its path went through
-# the kernel.
-launches = {"f32": 0, "f64": 0}
-block_launches = {"f32": 0, "f64": 0}
-
-
-def reset_launches():
-    for counts in (launches, block_launches):
-        for key in counts:
-            counts[key] = 0
-
 
 # C entry points: pointers and the stream are void*, sizes are ints
 _ARGTYPES = {
@@ -126,7 +115,7 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
                                    stream)
     if rc != 0:
         raise RuntimeError(f"ell_spmv_{name} launch failed: CUDA error {rc}")
-    launches[name] += 1
+    timing.launched("ell_spmv", name)
     return y
 
 
@@ -247,5 +236,5 @@ def ell_block_spmv(cols: torch.Tensor, A1: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"ell_block_spmv_{name} launch failed: CUDA "
                            f"error {rc}")
-    block_launches[name] += 1
+    timing.launched("ell_block_spmv", name)
     return y

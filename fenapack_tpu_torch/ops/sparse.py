@@ -8,15 +8,18 @@ run and on every device).  Two layouts share one interface
 
   * :class:`SparsityPattern` / :class:`ELL`: per-row padded column lists
     (int32, the JAX package's layout).  Its product is the ELL SpMV kernel
-    of :mod:`fenapack_tpu_torch.ops.ell_spmv` (K3).  :class:`ELLBlock`
-    (``pattern.block_matrix(A1vals, Rvals)``) is the velocity block of d
-    components whose operators share the pattern, applied in one pass by
-    the same module's block product, which reads each row's own entries
-    only (the pattern's ``row_len``).
+    of :mod:`fenapack_tpu_torch.ops.ell_spmv` (K3).
   * :class:`BlockSparsityPattern` / :class:`BlockELL`: block-sparse rows
     (BSR) of dense ``b x b`` tiles stored flat,
     ``tiles[I, i, j*b + c] = A[I*b + i, nbr[I, j]*b + c]``.  Its product is
     the BSR SpMV kernel of :mod:`fenapack_tpu_torch.ops.bsr_spmv` (K1, K2).
+
+Every pattern also gives the velocity block of d components whose operators
+share it, ``pattern.block_matrix(A1vals, Rvals).mv(x, y0)``: in the ELL
+layout :class:`ELLBlock`, one pass of K3's block product, which reads each
+row's own entries only (the pattern's ``row_len``); in the BSR layout
+:class:`ComposedBlock`, the single products of ``matrix(...)`` added in the
+order the reference composes them.
 
 On a CUDA tensor both products launch their hand-written kernel; on a CPU
 tensor they run the kernel's plain PyTorch version.
@@ -139,13 +142,45 @@ class ELLBlock:
         self.cols, self.A1, self.R, self.n_cols = cols, A1, R, n_cols
         self.row_len = row_len
 
-    def mv(self, x: torch.Tensor,
-           y0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def mv(self, x: torch.Tensor, y0=None) -> torch.Tensor:
         """``y[a] = A1 x[a] + y0[a] + sum_b R[a, b] x[b]`` for x of shape
-        (d, n_cols): (d, n_rows), the components in the order of x."""
+        (d, n_cols): (d, n_rows), the components in the order of x.  ``y0``
+        is None, a (d, n_rows) tensor or a sequence of d vectors."""
         with span("spmv.ell_block"):
             return ell_block_spmv(self.cols, self.A1, self.R, x,
-                                  self.n_cols, y0, row_len=self.row_len)
+                                  self.n_cols, stacked(y0),
+                                  row_len=self.row_len)
+
+
+def stacked(y0):
+    """``y0`` as one (d, n) tensor: a sequence of d vectors is stacked."""
+    return y0 if y0 is None or torch.is_tensor(y0) else torch.stack(y0)
+
+
+class ComposedBlock:
+    """The velocity block composed of single products: ``A1`` and the
+    reaction blocks ``R[a][b]`` (None: Picard) are operators of one
+    pattern's ``matrix``.  Its :meth:`mv` has :meth:`ELLBlock.mv`'s
+    contract and adds, per component ``a``, A1's product, then ``y0[a]``,
+    then the products with ``R[a][0]``, ``R[a][1]``, ... in turn."""
+
+    def __init__(self, matrix, A1vals: torch.Tensor,
+                 Rvals: Optional[torch.Tensor] = None):
+        self.A1 = matrix(A1vals)
+        self.R = (None if Rvals is None else
+                  [[matrix(Rvals[a, b]) for b in range(Rvals.shape[1])]
+                   for a in range(Rvals.shape[0])])
+
+    def mv(self, x: torch.Tensor, y0=None) -> torch.Tensor:
+        d = x.shape[0]
+        ys = [self.A1.mv(x[a]) for a in range(d)]
+        if y0 is not None:
+            ys = [ys[a] + y0[a] for a in range(d)]
+        if self.R is not None:
+            for a in range(d):
+                for b in range(d):
+                    ys[a] = ys[a] + self.R[a][b].mv(x[b])
+        return torch.stack(ys)
 
 
 class BlockELL:
@@ -267,7 +302,8 @@ class SparsityPattern:
     def block_matrix(self, A1vals: torch.Tensor,
                      Rvals: Optional[torch.Tensor] = None):
         """The velocity block ``A1`` per component plus the reaction blocks
-        ``Rvals`` (d, d, n_rows, K) or None, all over this pattern."""
+        ``Rvals`` (d, d, *value_shape) or None, all over this pattern; its
+        ``mv(x, y0=None)`` is :meth:`ELLBlock.mv`'s."""
         return ELLBlock(self.cols, A1vals, Rvals, self.n_cols, self.row_len)
 
     def assemble_values(self, element_values: torch.Tensor) -> torch.Tensor:
@@ -391,8 +427,7 @@ class BlockSparsityPattern(SparsityPattern):
         return BlockELL(self.nbr, vals, self.n_rows, self.n_cols, self.nnz)
 
     def block_matrix(self, A1vals, Rvals=None):
-        raise NotImplementedError(
-            "the one-pass velocity block exists for the ELL layout only")
+        return ComposedBlock(self.matrix, A1vals, Rvals)
 
     def _layout_cache(self) -> dict:
         return dict(nbr=self._nbr_np, shape_meta=np.asarray(

@@ -50,7 +50,8 @@ import torch
 from ..fem.assemble import ConstOperators
 from ..ops.bsr_spmv import bsr_spmv
 from ..ops.ell_spmv import ell_block_spmv, ell_spmv
-from ..ops.sparse import ELL, BlockSparsityPattern, SegmentSum
+from ..ops.sparse import (ELL, BlockSparsityPattern, ComposedBlock,
+                          SegmentSum, stacked)
 from . import comm as commmod
 from .spmd import RowBlockELL
 
@@ -127,8 +128,7 @@ class ShardedELL(ELL):
     """The rank's rows of an ELL matrix over global columns.  A product
     takes the rank's rows of x (gathered whole by the
     :class:`.spmd.RowBlockELL` of the pattern) or x whole, and gives the
-    rank's rows of ``A x`` (K3).  An :class:`ELL` to the solvers, which
-    then take the one-pass velocity block of its pattern."""
+    rank's rows of ``A x`` (K3)."""
 
     def __init__(self, cols, vals, rb: RowBlockELL, comm):
         super().__init__(cols, vals, rb.n_cols)
@@ -160,10 +160,10 @@ class ShardedELLBlock(ShardedELL):
         super().__init__(cols, A1, rb, comm)
         self.A1, self.R = A1, R
 
-    def mv(self, x: torch.Tensor,
-           y0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def mv(self, x: torch.Tensor, y0=None) -> torch.Tensor:
         return ell_block_spmv(self.cols, self.A1, self.R,
-                              self.whole(x).contiguous(), self.n_cols, y0)
+                              self.whole(x).contiguous(), self.n_cols,
+                              stacked(y0))
 
 
 class ShardedBlockELL:
@@ -297,8 +297,7 @@ class ShardedPattern:
 
     def block_matrix(self, A1vals, Rvals=None):
         if self.block:
-            raise NotImplementedError(
-                "the one-pass velocity block exists for the ELL layout only")
+            return ComposedBlock(self.matrix, A1vals, Rvals)
         return ShardedELLBlock(self.cols, A1vals, Rvals, self.rb, self.comm)
 
     def to_dense(self, vals: torch.Tensor) -> torch.Tensor:

@@ -25,21 +25,8 @@ from typing import Callable, Optional
 
 import torch
 
-from ..ops import bsr_spmv, ell_spmv
 from ..utils import timing
 from ..utils.timing import span
-
-
-def _launch_tallies():
-    """``(dict, key)`` of every kernel launch counter."""
-    return [(d, k) for d in (bsr_spmv.launches, ell_spmv.launches,
-                             ell_spmv.block_launches) for k in d]
-
-
-def _bsr_reads() -> dict:
-    """The BSR read counters (:func:`..utils.timing.bsr_read`) by name."""
-    return {k[4:]: n for k, n in timing.counts.items()
-            if k.startswith("bsr_")}
 
 
 class _CudaCapturer:
@@ -91,8 +78,7 @@ class _CudaCapturer:
 
 class _Captured:
     """One pipeline's graphs for one input shape and dtype: the static
-    input, the three parts as ``(span, graph, launch counter deltas, BSR
-    read deltas)``, the static
+    input, the three parts as ``(span, graph, counter deltas)``, the static
     output and the tensors that pass between the parts (held, so that no
     later capture into the pool takes their memory)."""
     __slots__ = ("x", "parts", "out", "between")
@@ -113,9 +99,9 @@ class PCGraphs:
     pool; an apply of a released pipeline captures again.
 
     The counters stay those of the work done: capture runs no kernel, so
-    the launch and BSR read counts that its Python adds are taken back and
-    kept as the part's deltas, and every replay adds them (the BSR reads
-    through :func:`..utils.timing.bsr_read`, so only while tracing).
+    what its Python adds to :data:`..utils.timing.counts` (launches, BSR
+    reads) is taken back and kept as the part's delta, and every replay
+    adds it.
     :meth:`for_layout` decides who gets graphs.  ``capturer`` is for tests:
     an object with ``warm(fn)`` and ``capture(fn) -> (graph, out)``, the
     graph with ``replay()`` and ``reset()``."""
@@ -139,7 +125,7 @@ class PCGraphs:
         self._live = None
         if pipe is not None:
             for c in pipe._graphs.values():
-                for _, g, _, _ in c.parts:
+                for _, g, _ in c.parts:
                     g.reset()
             pipe._graphs.clear()
 
@@ -157,18 +143,14 @@ class PCGraphs:
 
     def _part(self, c: _Captured, name: str, fn):
         """Capture one part into ``c``; returns its static output."""
-        tallies = _launch_tallies()
+        counts = timing.counts
         with span(name):
-            before, reads = [d[k] for d, k in tallies], _bsr_reads()
-            with timing.all_reads():
-                g, out = self.capturer.capture(fn)
-            launched = []
-            for (d, k), n0 in zip(tallies, before):
-                launched.append(d[k] - n0)
-                d[k] = n0
-            read = {k: n - reads[k] for k, n in _bsr_reads().items()}
-            timing.counts.update(("bsr_" + k, n) for k, n in reads.items())
-        c.parts.append((name, g, tuple(launched), read))
+            before = dict(counts)
+            g, out = self.capturer.capture(fn)
+            delta = {k: n - before[k] for k, n in counts.items()
+                     if n != before[k]}
+            counts.update(before)
+        c.parts.append((name, g, delta))
         return out
 
     def apply(self, pipe: "_FieldsplitUpper", r: torch.Tensor):
@@ -183,13 +165,12 @@ class PCGraphs:
         else:
             timing.counts["pc_graph_replays"] += 1
         c.x.copy_(r)
-        tallies = _launch_tallies()
-        for name, g, launched, read in c.parts:
+        counts = timing.counts
+        for name, g, delta in c.parts:
             with span(name):
                 g.replay()
-            for (d, k), n in zip(tallies, launched):
-                d[k] += n
-            timing.bsr_read(**read)
+            for k, n in delta.items():
+                counts[k] += n
         return c.out.to(r.dtype) if r.dtype != pipe.dtype else c.out.clone()
 
 

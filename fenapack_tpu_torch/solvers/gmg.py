@@ -634,34 +634,20 @@ def velocity_block_operator(pattern, A1vals: torch.Tensor,
     """``(mv, dinv)`` of the bc-masked velocity block over ``pattern``:
     ``mv(x) = free A (free x) + mask x`` for the stacked d components (A1
     on each diagonal block plus the Newton reaction blocks ``R[a, b]`` when
-    given) and the inverse of its diagonal (1 on the masked rows).  In the
-    ELL layout the block is one block product; in the BSR layout each
-    component is one single product with A1, plus one per reaction
-    block."""
+    given: ``pattern.block_matrix``) and the inverse of its diagonal (1 on
+    the masked rows)."""
     n2 = pattern.n_rows
     d = mask.shape[0] // n2
     free = 1.0 - mask
-    A1 = pattern.matrix(A1vals)
-    Rm = (None if R is None else
-          [[pattern.matrix(R[a, b]) for b in range(d)] for a in range(d)])
-    if isinstance(A1, ELL):
-        blk = pattern.block_matrix(A1vals, R)
+    blk = pattern.block_matrix(A1vals, R)
 
-        def block(xf):
-            return blk.mv(xf.view(d, n2)).view(-1)
-    else:
-        def block(xf):
-            comps = [xf[a * n2:(a + 1) * n2] for a in range(d)]
-            ys = [A1.mv(comps[a]) for a in range(d)]
-            if Rm is not None:
-                for a in range(d):
-                    for b in range(d):
-                        ys[a] = ys[a] + Rm[a][b].mv(comps[b])
-            return torch.cat(ys)
+    def block(xf):
+        return blk.mv(xf.view(d, n2)).view(-1)
 
-    diag1 = A1.diag_from(pattern.diag_pos)
-    diag = torch.cat([diag1 if Rm is None else
-                      diag1 + Rm[a][a].diag_from(pattern.diag_pos)
+    def diag_of(vals):
+        return pattern.matrix(vals).diag_from(pattern.diag_pos)
+    diag1 = diag_of(A1vals)
+    diag = torch.cat([diag1 if R is None else diag1 + diag_of(R[a, a])
                       for a in range(d)])
     diag = torch.where(mask > 0, torch.ones_like(diag), diag)
     return (lambda x: free * block(free * x) + mask * x), 1.0 / diag
@@ -751,11 +737,9 @@ def make_velocity_gmg_from_values(vh: VelocityHierarchy,
                                   omega: float = 0.6,
                                   dist=LOCAL) -> Callable:
     """Closure half of the velocity V-cycle, from
-    :func:`velocity_gmg_values` output.  In the ELL layout a level matvec is
-    one block product over the level's shared pattern (A1 on every
-    component plus the Newton reaction blocks); in the BSR layout each
-    component is one single-RHS product with the level's scalar operator,
-    plus one per Newton reaction block.  The smoother is
+    :func:`velocity_gmg_values` output.  A level matvec is the velocity
+    block of the level's pattern (:func:`velocity_block_operator`).  The
+    smoother is
     ``cfg.smoother``.  ``dist`` lays out the fine level's vectors (the
     solver's); the coarser levels are whole on every rank."""
     d = vh.asms[-1].dim

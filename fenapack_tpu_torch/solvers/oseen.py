@@ -53,7 +53,6 @@ import torch
 
 from ..fem.dofmap import DirichletBC, merge_bcs
 from ..ops import subsolve
-from ..ops.sparse import ELL
 from .config import SolverConfig, SubsolveConfig
 from ..ops.dist import LOCAL, zero_mean
 from ..utils import timing
@@ -302,42 +301,25 @@ class OseenSolver:
         n_u_loc = n_u // dist.size
         c = asm.const_hi if hi else asm.const
         pat = asm.pat_p2_hi if hi else asm.pat_p2
-        A1 = pat.matrix(A1vals)
         free_g = self.free_u.to(A1vals.dtype)
         free_u = dist.rows(free_g, "u")
         bc_u = dist.rows(self.bc_mask_u, "u").to(A1vals.dtype)
         p_pad = (dist.rows(self.p_pad, "p").to(A1vals.dtype)
                  if self.has_p_pad else None)
+        # the pressure gradient is added between A1's product and the
+        # reaction products, as the reference composes the block
+        blk = pat.block_matrix(A1vals, R)
 
-        if isinstance(A1, ELL):
-            # ELL: A1 and the reaction blocks share one pattern, and the
-            # velocity block is one pass over it (the pressure gradient is
-            # added between A1's product and the reaction products, as
-            # the composed form below adds it)
-            blk = pat.block_matrix(A1vals, R)
-
-            def velocity(xu, comps, p):
-                grad_p = torch.stack([c.DT[a].mv(p) for a in range(d)])
-                return blk.mv(xu.view(d, n2), grad_p).view(-1)
-        else:
-            Rm = (None if R is None else
-                  [[pat.matrix(R[a, b]) for b in range(d)] for a in range(d)])
-
-            def velocity(xu, comps, p):
-                ys = [A1.mv(comps[a]) + c.DT[a].mv(p) for a in range(d)]
-                if Rm is not None:
-                    for a in range(d):
-                        for b in range(d):
-                            ys[a] = ys[a] + Rm[a][b].mv(comps[b])
-                return torch.cat(ys)
+        def velocity(xu, p):
+            grad_p = [c.DT[a].mv(p) for a in range(d)]
+            return blk.mv(xu.view(d, n2), grad_p).view(-1)
 
         def matvec(x):
             xg = dist.full(x, "w")
             xu = free_g * xg[:n_u]
             p = xg[n_u:]
-            comps = [xu[a * n2:(a + 1) * n2] for a in range(d)]
-            yu = free_u * velocity(xu, comps, p) + bc_u * x[:n_u_loc]
-            yp = sum(c.D[a].mv(comps[a]) for a in range(d))
+            yu = free_u * velocity(xu, p) + bc_u * x[:n_u_loc]
+            yp = sum(c.D[a].mv(xu[a * n2:(a + 1) * n2]) for a in range(d))
             if p_pad is not None:
                 yp = yp + p_pad * x[n_u_loc:]    # identity on padding rows
             return torch.cat([yu, yp])

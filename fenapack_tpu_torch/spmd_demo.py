@@ -60,8 +60,6 @@ from .fem import mesh3d
 from .fem.assemble import NSAssembler
 from .fem.dofmap import DirichletBC
 from . import measure
-from .ops import bsr_spmv as K12
-from .ops import ell_spmv as K3
 from .ops.bsr_spmv import bsr_spmv, bsr_spmv_plain
 from .ops.ell_spmv import (ell_block_spmv, ell_block_spmv_plain, ell_spmv,
                            ell_spmv_plain)
@@ -208,8 +206,8 @@ def rank_run(comm, spec: dict) -> dict:
     """One rank's share of the nonlinear solve of ``spec``
     (:func:`spec_of`).  Returns the per-step counts, |F| history, true
     relative residuals, wall seconds, the state (NumPy) and a digest of
-    the state after every step (the ranks' must be equal), this rank's K3
-    launches and collectives during the solve, and the ring halos."""
+    the state after every step (the ranks' must be equal), this rank's
+    kernel launches and collectives during the solve, and the ring halos."""
     s = build_solvers(comm, spec)
     snl = s["snl"]
     w0 = None
@@ -224,13 +222,12 @@ def rank_run(comm, spec: dict) -> dict:
     dev = spec.get("device") or comm.device
     _sync(dev)
     comm.reset_counts()
-    K3.reset_launches()
+    measure.reset_launches()
     t0 = time.perf_counter()
     out = (snl.solve_fused if spec["fused"] else snl.solve)(w0=w0, **kw)
     _sync(dev)
     wall = time.perf_counter() - t0
-    launches = {"ell_spmv": dict(K3.launches),
-                "ell_block_spmv": dict(K3.block_launches)}
+    launches = measure.launch_counts()
     counts = dict(comm.counts)
     rings = snl.sp._rings
     return dict(
@@ -464,11 +461,6 @@ def build_gspmd(spec: dict, device) -> NonlinearSolver:
                            velocity_hierarchy=v_h)
 
 
-def _reset_launches():
-    K3.reset_launches()
-    K12.reset_launches()
-
-
 def gspmd_single(spec: dict, device) -> dict:
     """The unsharded step of ``spec`` on one device (the same padded
     assembler): the state (NumPy), the count, the wall seconds of the step
@@ -480,7 +472,7 @@ def gspmd_single(spec: dict, device) -> dict:
     o = nl.oseen
     w0 = nl.initial_state()
     _sync(device)
-    _reset_launches()
+    measure.reset_launches()
     t0 = time.perf_counter()
     F = nl.residual_of(w0)[0].to(o.dtype)
     res, fgmres = timed_solve(o, w0[:nl.n_u], -F)
@@ -520,7 +512,7 @@ def rank_gspmd(comm, spec: dict, repeat: int = 1) -> dict:
     w0 = nl.initial_state()
     _sync(dev)
     comm.reset_counts()
-    _reset_launches()
+    measure.reset_launches()
     t0 = time.perf_counter()
     w1, iters, _ = sh.step(w0)
     _sync(dev)

@@ -19,23 +19,26 @@ the count of full solves begun in this process, :func:`request`), and with
 + name)``, so the span stands in the profiler's trace beside the kernels
 its host code launched, on the profiler's clock.
 
-:data:`counts`: ``host_syncs`` is added to at every point of the solve path
-where the host waits for the device (a read of a device value to the host,
-a copy of host values to the device, the implicit check of
-``torch.linalg.inv``), counted where it is written whatever the device;
-``true_residuals`` at every true (f64) residual evaluation of a linear
-solve.  Both are always on.  The ``bsr_`` counters count only inside a
-:func:`tracing` block (:func:`bsr_read`): at every BSR product,
-``bsr_slots`` the tile slots it streams (``nb * m * b * b``, zero fill
-included) and ``bsr_nnz`` its operator's own nonzeros, whose ratio is the
-zero fill per nonzero that the products read; by the tiles' dtype
-(``f32``, ``f64``), ``bsr_nnz_<dtype>`` the same nonzeros and
+:data:`counts` holds every work counter of the process, all always on:
+``host_syncs`` is added to at every point of the solve path where the host
+waits for the device (a read of a device value to the host, a copy of host
+values to the device, the implicit check of ``torch.linalg.inv``), counted
+where it is written whatever the device; ``true_residuals`` at every true
+(f64) residual evaluation of a linear solve.  At every BSR product
+(:func:`bsr_read`), ``bsr_slots`` the tile slots it streams (``nb * m * b *
+b``, zero fill included) and ``bsr_nnz`` its operator's own nonzeros, whose
+ratio is the zero fill per nonzero that the products read; by the tiles'
+dtype (``f32``, ``f64``), ``bsr_nnz_<dtype>`` the same nonzeros and
 ``bsr_vec_<dtype>`` the entries of its input and output vectors
 (``(n_rows + n_cols) * k``), from which a reader reckons the least bytes
 the products move.  ``pc_applies`` counts every apply of a fieldsplit
 pipeline and ``pc_graph_replays`` those served by replaying its CUDA graphs
-(:mod:`..solvers.fieldsplit`).  ``fenapack_tpu_torch.measure.host_counts``
-reads them.
+(:mod:`..solvers.fieldsplit`).  ``launch.<kernel>.<dtype>`` counts the
+launches of each kernel wrapper (:func:`launched`; the plain versions count
+nothing).  A CUDA graph's capture takes back what its Python counted and
+every replay adds it (:class:`..solvers.fieldsplit.PCGraphs`).
+``fenapack_tpu_torch.measure`` reads them: ``launch_counts`` the launches,
+``host_counts`` the rest.
 """
 from __future__ import annotations
 
@@ -110,15 +113,19 @@ def device_trace(trace_dir: Optional[str]):
 
 # ---- counters ---------------------------------------------------------- #
 
-# host waits for the device and true residuals of the solve path, since the
-# process started; the BSR products' tile slots, nonzeros and vector
-# entries, while tracing; the fieldsplit applies and those served by graph
-# replay
+# the kernel wrappers whose launches are counted, by dtype
+KERNELS = ("bsr_spmv", "ell_spmv", "ell_block_spmv")
+LAUNCH = "launch."
+
+# since the process started: host waits for the device and true residuals
+# of the solve path; the BSR products' tile slots, nonzeros and vector
+# entries; the fieldsplit applies and those served by graph replay; the
+# kernel launches
 counts = {"host_syncs": 0, "true_residuals": 0, "bsr_slots": 0,
           "bsr_nnz": 0, "bsr_nnz_f32": 0, "bsr_vec_f32": 0,
           "bsr_nnz_f64": 0, "bsr_vec_f64": 0, "pc_applies": 0,
-          "pc_graph_replays": 0}
-_all_reads = False
+          "pc_graph_replays": 0,
+          **{f"{LAUNCH}{k}.{t}": 0 for k in KERNELS for t in ("f32", "f64")}}
 
 
 def host_sync(n: int = 1) -> None:
@@ -127,24 +134,15 @@ def host_sync(n: int = 1) -> None:
 
 
 def bsr_read(**reads: int) -> None:
-    """Add one BSR product's reads (or a graph replay's) to the counters
-    ``bsr_<name>``, inside a :func:`tracing` or :func:`all_reads` block
-    only."""
-    if _recorder is not None or _all_reads:
-        for name, n in reads.items():
-            counts["bsr_" + name] += n
+    """Add one BSR product's reads to the counters ``bsr_<name>``."""
+    for name, n in reads.items():
+        counts["bsr_" + name] += n
 
 
-@contextmanager
-def all_reads():
-    """:func:`bsr_read` counts outside a :func:`tracing` block too, inside
-    this one: a graph capture takes what its replays will read."""
-    global _all_reads
-    prev, _all_reads = _all_reads, True
-    try:
-        yield
-    finally:
-        _all_reads = prev
+def launched(kernel: str, dtype: str) -> None:
+    """Count one launch of ``kernel`` (one of :data:`KERNELS`) in
+    ``dtype`` (``f32``, ``f64``), where the wrapper launches it."""
+    counts[f"{LAUNCH}{kernel}.{dtype}"] += 1
 
 
 # ---- spans ------------------------------------------------------------- #

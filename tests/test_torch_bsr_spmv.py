@@ -10,7 +10,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from fenapack_tpu_torch import interop
+from fenapack_tpu_torch import interop, measure
 from fenapack_tpu_torch.ops import bsr_spmv as K
 from fenapack_tpu_torch.ops.sparse import pattern_from_dofmaps
 
@@ -119,9 +119,9 @@ def test_wrapper_rejects_bad_arguments():
 def test_cpu_tensors_take_the_plain_version_without_counting():
     nbr, tiles, nr, nc = _random_bsr(16, torch.float32, "cpu")
     x = torch.randn(nc, 3, dtype=torch.float32)
-    before = dict(K.launches)
+    before = measure.launch_counts()["bsr_spmv"]
     y = K.bsr_spmv(nbr, tiles, x, nr, nc)
-    assert K.launches == before
+    assert measure.launch_counts()["bsr_spmv"] == before
     torch.testing.assert_close(y, K.bsr_spmv_plain(nbr, tiles, x, nr, nc),
                                rtol=0, atol=0)
 
@@ -153,11 +153,11 @@ def test_kernel_matches_plain(cuda, block, dtype, nrhs):
     nbr, tiles, nr, nc = _random_bsr(block, dtype, cuda, nb=57, m=7)
     shape = (nc,) if nrhs == 1 else (nc, nrhs)
     x = torch.randn(shape, dtype=dtype, device=cuda)
-    before = dict(K.launches)
+    before = measure.launch_counts()["bsr_spmv"]
     y = K.bsr_spmv(nbr, tiles, x, nr, nc)
     torch.cuda.synchronize()
     name = "f32" if dtype == torch.float32 else "f64"
-    assert K.launches[name] == before[name] + 1
+    assert measure.launch_counts()["bsr_spmv"][name] == before[name] + 1
     ref = K.bsr_spmv_plain(nbr, tiles, x, nr, nc)
     tol = 1e-5 if dtype == torch.float32 else 1e-12
     assert float((y - ref).abs().max() / ref.abs().max()) <= tol

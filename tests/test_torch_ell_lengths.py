@@ -5,6 +5,8 @@ count (``row_len``): it equals the entries per row on the port's 2D (level
 1) and 3D (tet, level 0) Taylor-Hood patterns and on the multigrid
 restrictions, the padding past it holds column 0 and, once assembled, value
 0, and it survives ``with_vals``, ``block_matrix`` and the pattern cache.
+Every layout's ``block_matrix`` gives the velocity block: in BSR the single
+products composed in the solvers' order, bit for bit.
 The block product's wrapper checks the lengths; its plain version ignores
 them (padding adds zero), so CPU results are the same bits with and without
 them and equal the JAX package's composition of Pallas ELL products
@@ -128,6 +130,67 @@ def test_lengths_survive_with_vals_block_matrix_and_the_cache(tmp_path,
     assert isinstance(blk, ELLBlock) and blk.row_len is cached.row_len
 
 
+@pytest.fixture(scope="module")
+def velocity_patterns():
+    """The P2 velocity pattern of the level-1 cavity in the ELL layout and
+    in the BSR layout at b = 8 and 32, each by its tile size (None: ELL),
+    and the seeded element values to assemble."""
+    cd = TaylorHood(MESHES["2d-l1"]()).V
+    pats = {b: pattern_from_dofmaps(cd.cell_dofs, cd.cell_dofs, cd.dim,
+                                    cd.dim, block=b, device="cpu")
+            for b in (None, 8, 32)}
+    rng = np.random.default_rng(11)
+    elems = torch.as_tensor(rng.standard_normal(
+        (10,) + cd.cell_dofs.shape + (cd.cell_dofs.shape[1],)))
+    return pats, elems
+
+
+def _composed(pat, A1, R, x, y0):
+    """``y[a] = A1 x[a] + y0[a] + sum_b R[a, b] x[b]`` composed of the
+    pattern's single products, as the solvers composed the BSR block before
+    every pattern gave one: A1's products, then ``y0``, then the reaction
+    products in (a, b) order."""
+    d = x.shape[0]
+    ys = [pat.matrix(A1).mv(x[a]) for a in range(d)]
+    if y0 is not None:
+        ys = [ys[a] + y0[a] for a in range(d)]
+    if R is not None:
+        for a in range(d):
+            for b in range(d):
+                ys[a] = ys[a] + pat.matrix(R[a, b]).mv(x[b])
+    return torch.cat(ys).view(d, -1)
+
+
+@pytest.mark.parametrize("y0_as", [None, "tensor", "sequence"])
+@pytest.mark.parametrize("with_R", [True, False], ids=["newton", "picard"])
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("block", [None, 8, 32], ids=["ell", "bsr8", "bsr32"])
+def test_block_matrix_of_every_layout_is_the_composed_block(
+        velocity_patterns, block, d, with_R, y0_as):
+    """``pattern.block_matrix(A1, R).mv(x, y0)`` on every layout: in BSR
+    the single products composed in the solvers' order, bit for bit; in
+    ELL the one-pass block product, within the float64 tolerance of the
+    composition; ``y0`` given as a tensor or as a sequence of vectors."""
+    pats, elems = velocity_patterns
+    pat = pats[block]
+    A1 = pat.assemble_values(elems[0])
+    R = (torch.stack([pat.assemble_values(elems[1 + i % 9])
+                      for i in range(d * d)]).reshape(
+                          (d, d) + tuple(A1.shape)) if with_R else None)
+    g = torch.Generator().manual_seed(d)
+    x = torch.randn(d, pat.n_cols, generator=g, dtype=torch.float64)
+    y0 = (None if y0_as is None else
+          torch.randn(d, pat.n_rows, generator=g, dtype=torch.float64))
+    given = list(y0) if y0_as == "sequence" else y0
+    y = pat.block_matrix(A1, R).mv(x, given)
+    ref = _composed(pat, A1, R, x, y0)
+    assert y.shape == (d, pat.n_rows)
+    if block is None:
+        assert _relerr(y.numpy(), ref.numpy()) <= TOL[np.float64]
+    else:
+        assert torch.equal(y, ref)
+
+
 def _random_lengths(dtype, device, d, with_R, n=300, Kw=9, n_cols=257,
                     seed=5):
     """A random block product whose rows hold 0..K entries (every length
@@ -183,9 +246,9 @@ def test_block_plain_with_lengths_is_plain_without(dtype, d, with_R,
                                                    with_y0):
     cols, A1, R, x, y0, row_len = _random_lengths(dtype, "cpu", d, with_R)
     y0 = y0 if with_y0 else None
-    before = dict(K.block_launches)
+    before = measure.launch_counts()["ell_block_spmv"]
     y = K.ell_block_spmv(cols, A1, R, x, x.shape[1], y0, row_len=row_len)
-    assert K.block_launches == before
+    assert measure.launch_counts()["ell_block_spmv"] == before
     assert torch.equal(y, K.ell_block_spmv(cols, A1, R, x, x.shape[1], y0))
     assert torch.equal(y, ELLBlock(cols, A1, R, x.shape[1], row_len).mv(
         x, y0))
@@ -295,11 +358,12 @@ def test_block_kernel_matches_plain_at_ragged_lengths(cuda, dtype, d, with_R,
         pad = torch.arange(Kw, device=cuda)[None, :] >= row_len[:, None]
         nanA1 = A1.masked_fill(pad, float("nan"))
         nanR = None if R is None else R.masked_fill(pad, float("nan"))
-        before = dict(K.block_launches)
+        before = measure.launch_counts()["ell_block_spmv"]
         y = K.ell_block_spmv(cols, nanA1, nanR, x, n + 11, y0,
                              row_len=row_len)
         torch.cuda.synchronize()
-        assert K.block_launches[name] == before[name] + 1
+        after = measure.launch_counts()["ell_block_spmv"]
+        assert after[name] == before[name] + 1
         assert y.shape == ref.shape == (d, n)
         assert float((y - ref).abs().max() / ref.abs().max()) <= tol
         again = K.ell_block_spmv(cols, nanA1, nanR, x, n + 11, y0,
@@ -322,9 +386,9 @@ def test_block_mv_of_a_pattern_launches_one_kernel_with_lengths(cuda):
     R = torch.stack([pat.assemble_values(vals * (a + 1))
                      for a in range(9)]).reshape((3, 3) + tuple(A1.shape))
     x = torch.as_tensor(rng.standard_normal((3, n)), device=cuda)
-    K.reset_launches()
+    measure.reset_launches()
     y = pat.block_matrix(A1, R).mv(x)
     torch.cuda.synchronize()
-    assert K.block_launches == {"f32": 0, "f64": 1}
+    assert measure.launch_counts()["ell_block_spmv"] == {"f32": 0, "f64": 1}
     ref = K.ell_block_spmv_plain(pat.cols, A1, R, x, n)
     assert float((y - ref).abs().max() / ref.abs().max()) <= 1e-12

@@ -14,12 +14,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from fenapack_tpu_torch import interop
+from fenapack_tpu_torch import interop, measure
 from fenapack_tpu_torch.fem import mesh as tmesh
 from fenapack_tpu_torch.fem.dofmap import TaylorHood
 from fenapack_tpu_torch.ops import ell_spmv as K
 from fenapack_tpu_torch.ops.sparse import ELL, ELLBlock, SparsityPattern, \
     pattern_from_dofmaps
+from fenapack_tpu_torch.utils import timing
 
 TOL = {np.float32: 1e-5, np.float64: 1e-12}
 DTYPES = {np.float32: torch.float32, np.float64: torch.float64}
@@ -167,9 +168,9 @@ def test_wrapper_rejects_bad_arguments():
 def test_cpu_tensors_take_the_plain_version_without_counting():
     cols, vals, nc = _random_ell(torch.float32, "cpu")
     x = torch.randn(nc, 3, dtype=torch.float32)
-    before = dict(K.launches)
+    before = measure.launch_counts()["ell_spmv"]
     y = ELL(cols, vals, nc).mv(x)
-    assert K.launches == before
+    assert measure.launch_counts()["ell_spmv"] == before
     torch.testing.assert_close(y, K.ell_spmv_plain(cols, vals, x, nc),
                                rtol=0, atol=0)
 
@@ -182,10 +183,10 @@ def test_kernel_matches_plain(cuda, dtype, nrhs):
     shape = (nc,) if nrhs == 1 else (nc, nrhs)
     x = torch.randn(shape, dtype=dtype, device=cuda)
     name = "f32" if dtype == torch.float32 else "f64"
-    before = dict(K.launches)
+    before = measure.launch_counts()["ell_spmv"]
     y = K.ell_spmv(cols, vals, x, nc)
     torch.cuda.synchronize()
-    assert K.launches[name] == before[name] + 1
+    assert measure.launch_counts()["ell_spmv"][name] == before[name] + 1
     ref = K.ell_spmv_plain(cols, vals, x, nc)
     tol = 1e-5 if dtype == torch.float32 else 1e-12
     assert float((y - ref).abs().max() / ref.abs().max()) <= tol
@@ -205,10 +206,10 @@ def test_ell_mv_on_cuda_launches_the_kernel(cuda):
         torch.as_tensor(rng.standard_normal((cd.shape[0], 6, 6))))
     ell = ELL(port.cols.to(cuda), port.vals.to(cuda), port.n_cols)
     x = rng.standard_normal(port.n_cols)
-    K.reset_launches()
+    measure.reset_launches()
     y = ell.mv(torch.as_tensor(x, device=cuda))
     torch.cuda.synchronize()
-    assert K.launches == {"f32": 0, "f64": 1}
+    assert measure.launch_counts()["ell_spmv"] == {"f32": 0, "f64": 1}
     ref = port.mv(torch.as_tensor(x))
     assert _relerr(y.cpu().numpy(), ref.numpy()) <= 1e-12
 
@@ -354,13 +355,14 @@ def test_block_wrapper_rejects_bad_arguments():
 
 def test_block_cpu_tensors_take_the_plain_version_without_counting():
     cols, A1, R, x, y0 = _random_block(torch.float32, "cpu", 3, True)
-    before = (dict(K.launches), dict(K.block_launches))
+    before = measure.launch_counts()
     y = ELLBlock(cols, A1, R, x.shape[1]).mv(x)
-    assert (K.launches, K.block_launches) == before
+    assert measure.launch_counts() == before
     assert torch.equal(y, K.ell_block_spmv_plain(cols, A1, R, x, x.shape[1]))
-    K.block_launches["f32"] += 1
-    K.reset_launches()
-    assert K.block_launches == {"f32": 0, "f64": 0} == K.launches
+    timing.launched("ell_block_spmv", "f32")
+    measure.reset_launches()
+    assert measure.launch_counts() == {
+        k: {"f32": 0, "f64": 0} for k in timing.KERNELS}
 
 
 @pytest.mark.gpu
@@ -378,10 +380,11 @@ def test_block_kernel_matches_plain(cuda, dtype, d, with_R, with_y0):
                                            K=Kw, n_cols=n)
         if not with_y0:
             y0 = None
-        before = dict(K.block_launches)
+        before = measure.launch_counts()["ell_block_spmv"]
         y = K.ell_block_spmv(cols, A1, R, x, n, y0)
         torch.cuda.synchronize()
-        assert K.block_launches[name] == before[name] + 1
+        after = measure.launch_counts()["ell_block_spmv"]
+        assert after[name] == before[name] + 1
         ref = K.ell_block_spmv_plain(cols, A1, R, x, n, y0)
         assert y.shape == ref.shape == (d, n)
         assert float((y - ref).abs().max() / ref.abs().max()) <= tol
@@ -409,11 +412,11 @@ def test_kernel_matches_plain_on_ragged_and_unaligned_tiles(cuda, dtype):
 @pytest.mark.gpu
 def test_block_mv_on_cuda_launches_one_kernel(cuda):
     cols, A1, R, x, _ = _random_block(torch.float64, cuda, 2, True)
-    K.reset_launches()
+    measure.reset_launches()
     y = ELLBlock(cols, A1, R, x.shape[1]).mv(x)
     torch.cuda.synchronize()
-    assert K.block_launches == {"f32": 0, "f64": 1}
-    assert K.launches == {"f32": 0, "f64": 0}
+    assert measure.launch_counts()["ell_block_spmv"] == {"f32": 0, "f64": 1}
+    assert measure.launch_counts()["ell_spmv"] == {"f32": 0, "f64": 0}
     ref = K.ell_block_spmv_plain(cols, A1, R, x, x.shape[1])
     assert float((y - ref).abs().max() / ref.abs().max()) <= 1e-12
 
@@ -435,10 +438,10 @@ def test_block_kernel_raises_instead_of_falling_back(cuda):
     wide = 30000
     c = torch.zeros(4, wide, dtype=torch.int32, device=cuda)
     v = torch.ones(4, wide, dtype=torch.float32, device=cuda)
-    before = dict(K.launches)
+    before = measure.launch_counts()["ell_spmv"]
     with pytest.raises(RuntimeError):
         K.ell_spmv(c, v, torch.ones(4, device=cuda), 4)
-    assert K.launches == before
+    assert measure.launch_counts()["ell_spmv"] == before
     y = K.ell_block_spmv(c, v, None, torch.ones(2, 4, device=cuda), 4)
     assert torch.equal(y, torch.full((2, 4), float(wide), device=cuda))
 
@@ -487,7 +490,6 @@ def test_spmv_spans_name_each_product():
     """With spans on, every product of the three layouts is one span named
     by its layout, and the products give what they give with spans off."""
     from fenapack_tpu_torch.ops.sparse import BlockELL
-    from fenapack_tpu_torch.utils import timing
     cols, vals, nc = _random_ell(torch.float64, "cpu")
     bcols, A1, R, xb, _ = _random_block(torch.float64, "cpu", 2, True,
                                         n=40, n_cols=40)

@@ -6,7 +6,8 @@ capturer (the graph API's observable behaviour: capture runs the Python and
 keeps its output tensor, replay rewrites that tensor and adds no count of
 its own) checks the bookkeeping: one warm-up per solver, one capture per
 pipeline, shape and dtype, the counter deltas that replays add and capture
-does not, and the release of a pipeline's graphs.  The GPU-marked tests run
+does not (every counter of ``timing.counts``, the kernel launches among
+them), and the release of a pipeline's graphs.  The GPU-marked tests run
 the real graphs on a card against the eager apply.
 """
 import gc
@@ -16,10 +17,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from fenapack_tpu_torch import bench, measure
-from fenapack_tpu_torch.ops import bsr_spmv
 from fenapack_tpu_torch.solvers.fieldsplit import (PCGraphs,
                                                    make_fieldsplit_upper)
 from fenapack_tpu_torch.utils import timing
+
+K2 = timing.LAUNCH + "bsr_spmv.f32"     # the launch counter of the toy
 
 
 class StubGraph:
@@ -29,10 +31,9 @@ class StubGraph:
     def replay(self):
         # a replay runs no Python of the products: their counts are
         # taken back
-        saved = dict(bsr_spmv.launches), dict(timing.counts)
+        saved = dict(timing.counts)
         y = self.fn()
-        bsr_spmv.launches.update(saved[0])
-        timing.counts.update(saved[1])
+        timing.counts.update(saved)
         self.out.copy_(y)
         self.log["replays"] += 1
 
@@ -56,13 +57,10 @@ class StubCapturer:
 
 
 def _counted(fn):
-    c0 = measure.host_counts()
-    l0 = dict(bsr_spmv.launches)
+    """``fn()`` and what it added to every counter of ``timing.counts``."""
+    c0 = dict(timing.counts)
     y = fn()
-    c1 = measure.host_counts()
-    d = {k: c1[k] - c0[k] for k in c1}
-    d["launches"] = bsr_spmv.launches["f32"] - l0["f32"]
-    return y, d
+    return y, {k: n - c0[k] for k, n in timing.counts.items()}
 
 
 def _toy(graphs, n_u=6, n_p=3, seed=0):
@@ -76,7 +74,7 @@ def _toy(graphs, n_u=6, n_p=3, seed=0):
 
     def product(M):
         def mv(x):
-            bsr_spmv.launches["f32"] += 1
+            timing.launched("bsr_spmv", "f32")
             timing.bsr_read(slots=10, nnz=4, nnz_f32=4, vec_f32=7)
             return M @ x
         return mv
@@ -133,29 +131,24 @@ def test_stub_capture_bookkeeping():
     eager = _toy(None)
     r = torch.randn(9, generator=torch.Generator().manual_seed(2))
     z_ref, d_ref = _counted(lambda: eager(r))
-    assert d_ref["launches"] == 3 and d_ref["pc_graph_replays"] == 0
+    assert d_ref[K2] == 3 and d_ref["pc_graph_replays"] == 0
     # the first apply on the solver is the warm-up: eager, once
     z, d = _counted(lambda: pc(r))
     assert torch.equal(z, z_ref) and cap.log["warm"] == 1
     assert cap.log["captures"] == 0 and d == d_ref
     # then one capture of the three parts, whose replay serves the apply
     for i in range(3):
-        with timing.tracing():
-            z, d = _counted(lambda: pc(r))
+        z, d = _counted(lambda: pc(r))
         assert torch.equal(z, z_ref) and z is not pc._graphs[
             ((9,), torch.float32)].out
         assert cap.log["captures"] == 3 and cap.log["warm"] == 1
-        assert d["launches"] == 3 and d["pc_applies"] == 1
+        assert d[K2] == 3 and d["pc_applies"] == 1
         assert d["bsr_slots"] == 30 and d["bsr_nnz"] == 12
         assert d["bsr_nnz_f32"] == 12 and d["bsr_vec_f32"] == 21
         assert d["pc_graph_replays"] == (1 if i else 0)
-    # outside tracing a replay counts its launches and no BSR read
-    _, d = _counted(lambda: pc(r))
-    assert d["launches"] == 3
-    assert not any(n for k, n in d.items() if k.startswith("bsr_"))
     # another dtype: its own graphs, the output in the input's dtype
     z64, d = _counted(lambda: pc(r.double()))
-    assert cap.log["captures"] == 6 and d["launches"] == 3
+    assert cap.log["captures"] == 6 and d[K2] == 3
     assert z64.dtype == torch.float64 and torch.equal(z64,
                                                       z_ref.double())
     assert cap.log["resets"] == 0 and len(pc._graphs) == 2
@@ -171,6 +164,29 @@ def test_stub_capture_bookkeeping():
     assert torch.equal(z, z_ref) and d["pc_graph_replays"] == 0
     assert cap.log["captures"] == 12 and cap.log["resets"] == 9
     assert not pc2._graphs
+
+
+def test_capture_restores_and_replay_adds_the_eager_counts():
+    """A capture leaves every counter as it found it; each replay adds
+    exactly what the eager apply adds (launches and BSR reads included),
+    and one graph replay besides."""
+    cap = StubCapturer()
+    graphs = PCGraphs(cap)
+    pc, eager = _toy(graphs), _toy(None)
+    r = torch.randn(9, generator=torch.Generator().manual_seed(4))
+    _, d_eager = _counted(lambda: eager(r))
+    assert d_eager[K2] == 3 and d_eager["bsr_nnz"] == 12
+    pc(r)                                               # the warm-up
+    _, d = _counted(lambda: graphs._capture(pc, r))
+    assert cap.log["captures"] == 3 and not any(d.values())
+    # the apply that captures replays at once: no replay counted
+    _, d = _counted(lambda: pc(r))
+    assert cap.log["captures"] == 6 and d == d_eager
+    for _ in range(2):
+        _, d = _counted(lambda: pc(r))
+        assert d.pop("pc_graph_replays") == 1
+        assert d == {k: n for k, n in d_eager.items()
+                     if k != "pc_graph_replays"}
 
 
 def test_stub_graphs_on_the_main_path(step0, monkeypatch):
@@ -263,12 +279,12 @@ def test_graphed_solve_counts_equal_eager(step1_cuda, monkeypatch):
                               max_steps=bench.MAX_STEPS,
                               anderson=bench.ANDERSON)
     w0 = nl.initial_state().to(torch.float64)
-    l0 = dict(bsr_spmv.launches)
+    l0 = measure.launch_counts()["bsr_spmv"]
     graphed = full(w0)
-    l1 = dict(bsr_spmv.launches)
+    l1 = measure.launch_counts()["bsr_spmv"]
     monkeypatch.setattr(nl.oseen, "_pc_graphs", None)
     eager = full(w0)
-    l2 = dict(bsr_spmv.launches)
+    l2 = measure.launch_counts()["bsr_spmv"]
     assert graphed.converged and graphed.iters == eager.iters
     assert torch.equal(graphed.w, eager.w)
     assert {k: l1[k] - l0[k] for k in l0} == {k: l2[k] - l1[k] for k in l0}

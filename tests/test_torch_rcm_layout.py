@@ -1,10 +1,10 @@
 """The dof order of the port's layouts, on the CPU: the main path's BSR
 operators and transfers (``bench.build``, every level in its RCM order)
 store fewer tile slots per nonzero than the natural order would; every ELL
-assembler and hierarchy keeps the natural order; the tracing counters
+assembler and hierarchy keeps the natural order; the counters
 ``bsr_slots`` / ``bsr_nnz`` (and by dtype ``bsr_nnz_<dtype>`` /
-``bsr_vec_<dtype>``) add what a BSR product reads, and only while
-tracing."""
+``bsr_vec_<dtype>``) add what a BSR product reads, whether or not spans
+are on."""
 import numpy as np
 import pytest
 
@@ -105,13 +105,9 @@ def test_bsr_counters_add_one_products_read(main_path):
     pat = nl.asm.pat_p2
     op = pat.matrix(torch.ones(pat.value_shape))
     x = torch.ones(pat.n_cols)
-    c0 = measure.host_counts()
-    op.mv(x)
     c1 = measure.host_counts()
-    assert c1["bsr_slots"] == c0["bsr_slots"]
-    assert c1["bsr_nnz"] == c0["bsr_nnz"]
+    op.mv(x)
     with timing.tracing():
-        op.mv(x)
         op.with_vals(op.tiles).mv(torch.ones(pat.n_cols, 3))
     c2 = measure.host_counts()
     assert c2["bsr_slots"] - c1["bsr_slots"] == 2 * pat.nb * pat.m * 32 * 32
@@ -121,8 +117,7 @@ def test_bsr_counters_add_one_products_read(main_path):
     assert (c2["bsr_vec_f32"] - c1["bsr_vec_f32"]
             == 4 * (pat.n_rows + pat.n_cols))
     assert c2["bsr_nnz_f64"] == c1["bsr_nnz_f64"]
-    with timing.tracing():
-        op.with_vals(op.tiles.double()).mv(x.double())
+    op.with_vals(op.tiles.double()).mv(x.double())
     c3 = measure.host_counts()
     assert c3["bsr_nnz_f64"] - c2["bsr_nnz_f64"] == pat.nnz
     assert c3["bsr_vec_f64"] - c2["bsr_vec_f64"] == pat.n_rows + pat.n_cols
