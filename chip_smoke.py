@@ -285,6 +285,8 @@ import time
 import numpy as np
 import torch
 
+from fenapack_tpu_torch.bsr_ab import path_operators
+
 F64_TOL, F32_TOL = 1e-12, 1e-5      # max relative error, kernel vs plain
 SPMD_RANKS, SPMD_LEVEL = 4, 2        # the ring path's rank count, step level
 # the JAX package's counts of the 3D duct's three fused Newton steps in f64
@@ -382,36 +384,6 @@ def mms_errors(n: int, device):
     ph, pe = w[2 * n2:], np.sin(pi * cq[:, 0]) * np.sin(pi * cq[:, 1])
     err_p = np.sqrt(np.mean(((ph - ph.mean()) - (pe - pe.mean())) ** 2))
     return (err_u, err_p), (nl, r.w)
-
-
-def path_operators(nl):
-    """Every BSR operator the main path applies, with the values it
-    applies at the initial state."""
-    from fenapack_tpu_torch.solvers import gmg
-    o, asm = nl.oseen, nl.asm
-    w0 = nl.initial_state().to(torch.float64)
-    wind = w0[:nl.n_u]
-    A1h, _ = o._operator_values_raw(wind, hi=True)
-    A1, _ = o._operator_values(wind.to(o.dtype))
-    kp = asm.kp_values(wind.to(o.dtype), surface=True).to(o.dtype)
-    vh, ph = o.velocity_hierarchy, o.ap_hierarchy
-    lv = [v for v, _ in gmg.velocity_gmg_values(
-        vh, wind.to(o.dtype), o.bc_mask_u, o.dtype,
-        fine_values=(A1, None))["levels"]]
-    ops = [("A1 fine (f64)", asm.pat_p2_hi.matrix(A1h)),
-           ("DT fine (f64)", asm.const_hi.DT[0]),
-           ("D fine (f64)", asm.const_hi.D[0]),
-           ("Bt (f32)", asm.const.DT[0]), ("D (f32)", asm.const.D[0]),
-           ("Mp", asm.const.Mp), ("Kp", asm.pat_p1.matrix(kp))]
-    ops += [(f"A1 velocity level {l}", a.pat_p2.matrix(v))
-            for l, (a, v) in enumerate(zip(vh.asms, lv))]
-    ops += [(f"Ap pressure level {l}", lev.Ap)
-            for l, lev in enumerate(ph.levels)]
-    for name, transfers in (("P2", vh.transfers), ("P1", ph.transfers)):
-        for l, t in enumerate(transfers):
-            ops += [(f"{name} prolong {l}->{l + 1}", t._P),
-                    (f"{name} restrict {l + 1}->{l}", t._PT)]
-    return ops
 
 
 def ell_path_operators(o, wind):
@@ -740,7 +712,7 @@ def main():
                 t, why = yardsticks(
                     kernel, plain, measure.library(measure.bsr_library(op),
                                                    x),
-                    nbytes, 2 * op.tiles.numel(), op.tiles.dtype)
+                    nbytes, 2 * op.nnz, op.tiles.dtype)
                 r.update(t)
                 line = (f"[kernels] {name} bsr_spmv_{kind} headline: "
                         f"{json.dumps(t)}; cuSPARSE BSR "

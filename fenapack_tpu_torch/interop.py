@@ -13,21 +13,22 @@ import numpy as np
 import torch
 
 from .fem.assemble import ConstOperators
+from .ops import bsr_spmv
 from .ops.sparse import ELL, BlockELL
 
 
 def operator(arrays: Mapping[str, np.ndarray], *, device,
              dtype: Optional[torch.dtype] = None):
-    """A :class:`BlockELL` from ``nbr``/``tiles``/``n_rows``/``n_cols`` or an
+    """A :class:`BlockELL` from ``nbr``/``tiles``/``n_rows``/``n_cols`` (the
+    JAX package's dense tiles, packed: :func:`.ops.bsr_spmv.pack`) or an
     :class:`ELL` from ``cols``/``vals``/``n_cols`` (int32 columns, the
     layout of both packages)."""
     if "nbr" in arrays:
-        return BlockELL(
-            torch.as_tensor(np.array(arrays["nbr"]), dtype=torch.int32,
-                            device=device),
-            torch.as_tensor(np.array(arrays["tiles"]), dtype=dtype,
-                            device=device),
-            int(arrays["n_rows"]), int(arrays["n_cols"]))
+        idx, vals = bsr_spmv.pack(
+            torch.as_tensor(np.array(arrays["nbr"]), dtype=torch.int32),
+            torch.as_tensor(np.array(arrays["tiles"]), dtype=dtype))
+        return BlockELL(idx.to(device), vals.to(device),
+                        int(arrays["n_rows"]), int(arrays["n_cols"]))
     return ELL(torch.as_tensor(np.array(arrays["cols"]), dtype=torch.int32,
                                device=device),
                torch.as_tensor(np.array(arrays["vals"]), dtype=dtype,
@@ -37,7 +38,9 @@ def operator(arrays: Mapping[str, np.ndarray], *, device,
 
 def pattern_index(arrays: Mapping[str, np.ndarray], *, device) -> dict:
     """A pattern's index arrays (``nbr``, ``entry_pos``, ``diag_pos``, any
-    subset) as tensors: int32 ``nbr`` for the kernel, int64 positions."""
+    subset) as tensors: int32 ``nbr``, int64 positions.  (The JAX
+    package's BSR positions are those of its dense tiles:
+    ``BlockSparsityPattern.dense_positions`` maps the port's to them.)"""
     out = {}
     for name, a in arrays.items():
         dt = torch.int32 if name == "nbr" else torch.int64

@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ops import bsr_spmv
+
 # H100 SXM peaks (NVIDIA data sheet, full 700 W power limit): HBM bytes/s;
 # FP32 and FP64 FLOP/s outside the tensor cores
 HBM_BPS = 3.35e12
@@ -152,13 +154,16 @@ def ell_block_flops(A1: torch.Tensor, R, d: int, row_len=None) -> int:
     return 2 * ell_entries(A1, row_len) * (d + (0 if R is None else d * d))
 
 
-def bsr_bytes(nbr: torch.Tensor, tiles: torch.Tensor, n_rows: int,
+def bsr_bytes(idx: torch.Tensor, vals: torch.Tensor, n_rows: int,
               n_cols: int, nrhs: int = 1) -> int:
-    """Bytes a BSR product must move: tiles, the int32 neighbour table, x,
-    y."""
-    isz = tiles.element_size()
-    return (tiles.numel() * isz + nbr.numel() * 4
-            + (n_cols + n_rows) * nrhs * isz)
+    """Bytes a packed BSR product must move: the slots it streams (value
+    and 16-bit id each, the shorter rows' padding included), each block
+    row's neighbour words and header, x, y."""
+    nb, L, b = vals.shape
+    isz = vals.element_size()
+    nbr, _ = bsr_spmv.unpack(idx, L, b)
+    return (bsr_spmv.slots(idx, L, b) * (isz + 2) + nb * (nbr.shape[1] + 1)
+            * 4 + (n_cols + n_rows) * nrhs * isz)
 
 
 def library(build, x):
@@ -176,16 +181,18 @@ def library(build, x):
 
 def bsr_library(op):
     """``build(x) -> (A, x_in)``: a ``torch.sparse_bsr_tensor`` of the real
-    blocks of a BlockELL (the padding slots, which repeat a row's first
-    neighbour with zero tiles, left out) and x padded to whole blocks."""
-    nb, b, mb = op.tiles.shape
+    blocks of a BlockELL's dense tiles (the padding slots, which repeat a
+    row's first neighbour with zero tiles, left out) and x padded to whole
+    blocks."""
+    nbr, tiles = bsr_spmv.dense(op.nbr, op.tiles)
+    nb, b, mb = tiles.shape
     m, ncb = mb // b, -(-op.n_cols // b)
-    nbr = op.nbr.long()
+    nbr = nbr.long()
     real = torch.ones_like(nbr, dtype=torch.bool)
     real[:, 1:] = nbr[:, 1:] != nbr[:, :1]
     crow = torch.cat([torch.zeros(1, dtype=torch.int64, device=nbr.device),
                       torch.cumsum(real.sum(1), 0)])
-    blocks = op.tiles.reshape(nb, b, m, b).permute(0, 2, 1, 3)[real]
+    blocks = tiles.reshape(nb, b, m, b).permute(0, 2, 1, 3)[real]
 
     def build(x):
         A = torch.sparse_bsr_tensor(crow, nbr[real], blocks.contiguous(),
@@ -195,6 +202,32 @@ def bsr_library(op):
                          device=x.device)
         xp[:op.n_cols] = x
         return A, xp
+    return build
+
+
+def bsr_csr_library(op):
+    """``build(x) -> (A, x)``: a ``torch.sparse_csr_tensor`` of a
+    BlockELL's real slots (a row's slots are in column order)."""
+    nb, L, b = op.tiles.shape
+    nbr, kid = bsr_spmv.unpack(op.nbr, L, b)
+    real = kid != bsr_spmv.NO_SLOT
+    dev = op.tiles.device
+    row = (torch.arange(nb, device=dev)[:, None, None] * b
+           + torch.arange(b, device=dev)[None, None, :]).expand(nb, L, b)
+    col = (torch.gather(nbr, 1, (kid >> 5).clamp(max=nbr.shape[1] - 1)
+                        .reshape(nb, -1)).reshape(nb, L, b) * b + (kid & 31))
+    # slots (I, q, i) in row order: (I, i, q)
+    perm = lambda t: t.permute(0, 2, 1)[real.permute(0, 2, 1)]
+    rows, cols, vals = perm(row), perm(col), perm(op.tiles)
+    crow = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                      torch.cumsum(torch.bincount(
+                          rows, minlength=op.n_rows), 0)])
+
+    def build(x):
+        A = torch.sparse_csr_tensor(crow, cols, vals.to(x.dtype),
+                                    size=(op.n_rows, op.n_cols),
+                                    check_invariants=False)
+        return A, x
     return build
 
 

@@ -10,9 +10,12 @@ run and on every device).  Two layouts share one interface
     (int32, the JAX package's layout).  Its product is the ELL SpMV kernel
     of :mod:`fenapack_tpu_torch.ops.ell_spmv` (K3).
   * :class:`BlockSparsityPattern` / :class:`BlockELL`: block-sparse rows
-    (BSR) of dense ``b x b`` tiles stored flat,
-    ``tiles[I, i, j*b + c] = A[I*b + i, nbr[I, j]*b + c]``.  Its product is
-    the BSR SpMV kernel of :mod:`fenapack_tpu_torch.ops.bsr_spmv` (K1, K2).
+    (BSR): rows in block rows of ``b`` over their neighbour blocks ``nbr``,
+    each block row stored as one packed slice of its rows' own entries,
+    ``vals[I, q, i]`` the q-th entry of row ``I*b + i`` (the layout of
+    :mod:`fenapack_tpu_torch.ops.bsr_spmv`; ``dense_tiles`` gives the
+    JAX package's dense ``b x b`` tiles back).  Its product is the BSR SpMV
+    kernel of that module (K1, K2).
 
 Every pattern also gives the velocity block of d components whose operators
 share it, ``pattern.block_matrix(A1vals, Rvals).mv(x, y0)``: in the ELL
@@ -40,6 +43,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import bsr_spmv as _bsr
 from .bsr_spmv import bsr_spmv
 from .ell_spmv import ell_block_spmv, ell_spmv
 from ..utils.timing import bsr_read, span
@@ -184,17 +188,19 @@ class ComposedBlock:
 
 
 class BlockELL:
-    """Block-sparse-row matrix: block row I couples to block columns
-    ``nbr[I, :]`` (padding slots repeat a valid block and hold zero tiles);
-    ``tiles`` is (nb, b, m*b) in the flat layout of the module docstring.
-    ``nnz``: the operator's own nonzeros where its pattern is known (the
-    tracing counters' ``bsr_nnz``); None: the product is not counted."""
+    """Block-sparse-row matrix in packed slices: ``nbr`` the int32 index
+    array of block row I's neighbours and slot ids, ``tiles`` the values
+    (nb, L, b) (:mod:`.bsr_spmv`).  ``nnz`` and ``slots``: the operator's
+    own nonzeros and the slots a product streams, where its pattern is known
+    (the counters ``bsr_nnz``, ``bsr_slots``); None: the product is not
+    counted."""
 
     def __init__(self, nbr: torch.Tensor, tiles: torch.Tensor, n_rows: int,
-                 n_cols: int, nnz: Optional[int] = None):
+                 n_cols: int, nnz: Optional[int] = None,
+                 slots: Optional[int] = None):
         self.nbr, self.tiles = nbr, tiles
         self.n_rows, self.n_cols = n_rows, n_cols
-        self.nnz = nnz
+        self.nnz, self.slots = nnz, slots
 
     @property
     def shape(self):
@@ -205,7 +211,8 @@ class BlockELL:
         return self.tiles
 
     def with_vals(self, vals: torch.Tensor) -> "BlockELL":
-        return BlockELL(self.nbr, vals, self.n_rows, self.n_cols, self.nnz)
+        return BlockELL(self.nbr, vals, self.n_rows, self.n_cols, self.nnz,
+                        self.slots)
 
     def mv(self, x: torch.Tensor) -> torch.Tensor:
         """y = A @ x for x of shape (n_cols,) or (n_cols, k)."""
@@ -213,17 +220,21 @@ class BlockELL:
             if self.nnz is not None:
                 t = "f64" if self.tiles.dtype == torch.float64 else "f32"
                 k = 1 if x.dim() == 1 else x.shape[1]
-                bsr_read(slots=self.tiles.numel(), nnz=self.nnz,
+                bsr_read(slots=self.slots, nnz=self.nnz,
                          **{"nnz_" + t: self.nnz,
                             "vec_" + t: (self.n_rows + self.n_cols) * k})
             return bsr_spmv(self.nbr, self.tiles, x.contiguous(),
                             self.n_rows, self.n_cols)
 
     def row_sums(self) -> torch.Tensor:
-        return torch.sum(self.tiles, dim=2).reshape(-1)[:self.n_rows]
+        return torch.sum(self.tiles, dim=1).reshape(-1)[:self.n_rows]
 
     def diag_from(self, diag_pos: torch.Tensor) -> torch.Tensor:
         return self.tiles.reshape(-1)[diag_pos]
+
+    def dense_tiles(self) -> torch.Tensor:
+        """The dense tiles (nb, b, m*b) of the JAX package's layout."""
+        return _bsr.dense(self.nbr, self.tiles)[1]
 
 
 class SparsityPattern:
@@ -383,8 +394,13 @@ class SparsityPattern:
 
 
 class BlockSparsityPattern(SparsityPattern):
-    """Block-sparse-row layout with tile size ``block`` (rows and columns
-    grouped in blocks of ``b``; the two spaces may differ in size)."""
+    """Block-sparse-row layout with block size ``block`` (rows and columns
+    grouped in blocks of ``b``; the two spaces may differ in size), each
+    block row stored as one packed slice (:mod:`.bsr_spmv`): ``nbr`` its
+    index array, ``value_shape`` (nb, L, b).  ``m``: the most neighbour
+    blocks of a block row; ``slots``: the slots a product streams;
+    ``fill_ratio``: slots per nonzero; ``tile_fill``: the dense tiles'
+    ``nb*m*b*b`` slots per nonzero (what the JAX package's layout holds)."""
 
     def __init__(self, rows, cols, n_rows, n_cols, block: int = 32, *,
                  device):
@@ -402,43 +418,69 @@ class BlockSparsityPattern(SparsityPattern):
         m = int(counts.max()) if counts.size else 1
         row_start = np.concatenate([[0], np.cumsum(counts)])
         slot = np.arange(upairs.shape[0]) - row_start[pbr]
-        tile_of_pair = pbr * m + slot
         nbr = np.zeros((nb, m), dtype=np.int32)
-        nbr.reshape(-1)[tile_of_pair] = pbc
-        # padding slots repeat the row's first neighbour (their tiles are 0)
+        nbr.reshape(-1)[pbr * m + slot] = pbc
+        # padding slots repeat the row's first neighbour (no id names them)
         filled = np.zeros((nb, m), dtype=bool)
-        filled.reshape(-1)[tile_of_pair] = True
+        filled.reshape(-1)[pbr * m + slot] = True
         first = np.where(counts > 0, nbr[:, 0], 0)
         nbr = np.where(filled, nbr, first[:, None]).astype(np.int32)
-        tid = tile_of_pair[pinv]
-        self._upos = (((tid // m) * b + urow % b) * (m * b)
-                      + (tid % m) * b + ucol % b)
-        self._set_block_layout(nb, m, nbr)
+        # a row's entries in column order: (neighbour, column) order, as
+        # the neighbours of a block row are in block-column order
+        rcount = np.bincount(urow, minlength=nb * b)
+        L = max(int(rcount.max(initial=0)), 1)
+        q = np.arange(urow.shape[0]) - (np.cumsum(rcount) - rcount)[urow]
+        blk, lane = urow // b, urow % b
+        self._upos = (blk * L + q) * b + lane
+        kid = np.full((nb, L, b), _bsr.NO_SLOT, dtype=np.int64)
+        kid[blk, q, lane] = slot[pinv] * 32 + ucol % b
+        self._set_block_layout(nb, m, L, _bsr.pack_index(nbr, kid))
 
-    def _set_block_layout(self, nb, m, nbr):
+    def _set_block_layout(self, nb, m, L, idx):
         b = self.block
-        self.nb, self.m = nb, m
-        self.value_shape = (nb, b, m * b)
-        self._nbr_np = nbr
-        self.nbr = torch.as_tensor(nbr, dtype=torch.int32, device=self.device)
-        self.fill_ratio = float(nb * m * b * b) / max(self.nnz, 1)
+        self.nb, self.m, self.L = nb, m, L
+        self.value_shape = (nb, L, b)
+        self._idx_np = idx
+        self.nbr = torch.as_tensor(idx, dtype=torch.int32, device=self.device)
+        self.slots = _bsr.slots(idx, L, b)
+        self.fill_ratio = float(self.slots) / max(self.nnz, 1)
+        self.tile_fill = float(nb * m * b * b) / max(self.nnz, 1)
+
+    @property
+    def neighbours(self) -> torch.Tensor:
+        """The block columns of each block row, (nb, m) int32, as the JAX
+        package's ``nbr`` (padding slots repeat the row's first)."""
+        return self.nbr[:, :self.m]
+
+    def dense_positions(self, pos) -> np.ndarray:
+        """Flat positions in the dense tiles (nb, b, m*b) of the JAX
+        package's layout for flat value positions ``pos`` of real slots."""
+        _, src, dst = _bsr.scatter(self.nbr, self.L, self.block)
+        to_dense = np.full(self.value_size, -1, dtype=np.int64)
+        to_dense[src.cpu().numpy()] = dst.cpu().numpy()
+        return to_dense[np.asarray(pos, dtype=np.int64)]
+
+    def dense_tiles(self, vals: torch.Tensor) -> torch.Tensor:
+        """The dense tiles (nb, b, m*b) of a value array."""
+        return _bsr.dense(self.nbr, vals)[1]
 
     def matrix(self, vals: torch.Tensor):
-        return BlockELL(self.nbr, vals, self.n_rows, self.n_cols, self.nnz)
+        return BlockELL(self.nbr, vals, self.n_rows, self.n_cols, self.nnz,
+                        self.slots)
 
     def block_matrix(self, A1vals, Rvals=None):
         return ComposedBlock(self.matrix, A1vals, Rvals)
 
     def _layout_cache(self) -> dict:
-        return dict(nbr=self._nbr_np, shape_meta=np.asarray(
-            [self.nb, self.m, self.block], dtype=np.int64))
+        return dict(nbr=self._idx_np, shape_meta=np.asarray(
+            [self.nb, self.m, self.block, self.L], dtype=np.int64))
 
     def _restore_layout(self, d, block):
         self.block = int(block)
-        nb, m, b = (int(v) for v in d["shape_meta"])
+        nb, m, b, L = (int(v) for v in d["shape_meta"])
         if b != self.block:
             raise ValueError(f"cached pattern has block {b}, not {block}")
-        self._set_block_layout(nb, m, d["nbr"])
+        self._set_block_layout(nb, m, L, d["nbr"])
 
 
 def _pattern_cache_dir() -> Optional[str]:
@@ -467,7 +509,7 @@ def pattern_from_dofmaps(test_dofs: np.ndarray, trial_dofs: np.ndarray,
         hsh = hashlib.blake2b(digest_size=20)
         for part in (test_dofs, trial_dofs):
             hsh.update(np.ascontiguousarray(part).tobytes())
-        hsh.update(f"v2|{n_rows}|{n_cols}|{block}".encode())
+        hsh.update(f"v3|{n_rows}|{n_cols}|{block}".encode())
         path = os.path.join(cache_dir, hsh.hexdigest() + ".npz")
         if os.path.exists(path):
             try:

@@ -204,7 +204,7 @@ class ShardedBlockELL:
     def row_sums(self) -> torch.Tensor:
         p = self.pat
         n = p.n_rows if p.sharded else p.n_rows_full
-        return self._rows(torch.sum(self.tiles, dim=2).reshape(-1)[:n])
+        return self._rows(torch.sum(self.tiles, dim=1).reshape(-1)[:n])
 
     def diag_from(self, diag_pos: torch.Tensor) -> torch.Tensor:
         return self._rows(self.tiles.reshape(-1)[diag_pos])
@@ -240,12 +240,12 @@ class ShardedPattern:
         self.col_space = dist.space_of(pat.n_cols)
         self.block = isinstance(pat, BlockSparsityPattern)
         if self.block:
-            b, nb, m = pat.block, pat.nb, pat.m
+            b, nb, L = pat.block, pat.nb, pat.L
             self.sharded = pat.n_rows == nb * b and nb % s == 0
             nbl = nb // s
-            self._chunk = nbl * b * m * b
+            self._chunk = nbl * L * b
             if self.sharded:
-                self.value_shape = (nbl, b, m * b)
+                self.value_shape = (nbl, L, b)
                 self.nbr = pat.nbr[r * nbl:(r + 1) * nbl].contiguous()
             else:
                 self.value_shape = tuple(pat.value_shape)

@@ -607,7 +607,7 @@ def rank_gspmd_kernel_check(comm, spec: dict, seed: int = 0) -> dict:
         if kind == "bsr":
             x = torch.randn(op.n_cols, generator=gen,
                             dtype=torch.float64).to(dev, op.tiles.dtype)
-            n_rows = op.nbr.shape[0] * op.tiles.shape[1]
+            n_rows = op.nbr.shape[0] * op.tiles.shape[2]
             n_rows = min(n_rows, op.pat.n_rows_full)
             y = bsr_spmv(op.nbr, op.tiles, x, n_rows, op.n_cols)
             ref = bsr_spmv_plain(op.nbr, op.tiles, x, n_rows, op.n_cols)

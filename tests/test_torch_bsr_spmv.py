@@ -1,7 +1,8 @@
 """BSR SpMV (kernels K1/K2): the plain PyTorch version against the JAX
 package's ``BlockELL.mv`` (its XLA formula, the reference the Pallas kernel
-tests compare with), the wrapper's checks, and, on a CUDA GPU only, the
-hand-written kernel against the plain version.
+tests compare with; the JAX package's dense tiles packed), the wrapper's
+checks, and, on a CUDA GPU only, the hand-written kernel against the plain
+version.  ``tests/test_torch_bsr_packed.py`` holds the packed layout.
 
 Tolerances (max |y - y_ref| / max |y_ref|): float32 1e-5, float64 1e-12;
 the two sides sum in different orders."""
@@ -80,49 +81,58 @@ def test_plain_matches_jax_blockell(block, np_dtype, square):
 
 @pytest.mark.parametrize("block", [8, 32])
 def test_port_pattern_assembly_matches_jax_tiles(block):
-    """The port's own pattern and assembly give the JAX package's tiles."""
+    """The port's own pattern and assembly give the JAX package's tiles
+    (through the dense view of the packed values)."""
     op, _, _ = _jax_op(block, np.float64, square=False)
     rng = np.random.default_rng(0)
     rows, cols, nr, nc = _dofmaps(rng, square=False)
     vals = rng.standard_normal((rows.shape[0], rows.shape[1], cols.shape[1]))
     pat = pattern_from_dofmaps(rows, cols, nr, nc, block=block,
                                device="cpu")
-    tiles = pat.assemble_values(torch.as_tensor(vals))
+    tiles = pat.dense_tiles(pat.assemble_values(torch.as_tensor(vals)))
     np.testing.assert_allclose(tiles.numpy(), np.asarray(op.tiles),
                                rtol=0, atol=1e-13)
 
 
-def _random_bsr(block, dtype, device, nb=19, m=5, seed=1, n_cols=None):
+def _random_dense(block, dtype, nb=19, m=5, seed=1, n_cols=None):
+    """Random neighbours and dense tiles (every slot nonzero)."""
     g = torch.Generator().manual_seed(seed)
     n_cols = n_cols or nb * block - 3
     nbr = torch.randint(0, -(-n_cols // block), (nb, m), generator=g,
                         dtype=torch.int32)
     tiles = torch.randn(nb, block, m * block, generator=g, dtype=dtype)
-    return nbr.to(device), tiles.to(device), nb * block - 5, n_cols
+    return nbr, tiles, nb * block - 5, n_cols
+
+
+def _random_bsr(block, dtype, device, nb=19, m=5, seed=1, n_cols=None):
+    """The packed layout of :func:`_random_dense`."""
+    nbr, tiles, nr, nc = _random_dense(block, dtype, nb, m, seed, n_cols)
+    idx, vals = K.pack(nbr, tiles)
+    return idx.to(device), vals.to(device), nr, nc
 
 
 def test_wrapper_rejects_bad_arguments():
-    nbr, tiles, nr, nc = _random_bsr(8, torch.float64, "cpu")
+    idx, vals, nr, nc = _random_bsr(8, torch.float64, "cpu")
     x = torch.zeros(nc, dtype=torch.float64)
     with pytest.raises(ValueError):
-        K.bsr_spmv(nbr, tiles, x[:-1], nr, nc)            # wrong length
+        K.bsr_spmv(idx, vals, x[:-1], nr, nc)             # wrong length
     with pytest.raises(TypeError):
-        K.bsr_spmv(nbr, tiles, x.float(), nr, nc)         # dtype mismatch
+        K.bsr_spmv(idx, vals, x.float(), nr, nc)          # dtype mismatch
     with pytest.raises(TypeError):
-        K.bsr_spmv(nbr.long(), tiles, x, nr, nc)          # int64 nbr
+        K.bsr_spmv(idx.long(), vals, x, nr, nc)           # int64 idx
     with pytest.raises(ValueError):
-        K.bsr_spmv(nbr[:, :-1], tiles, x, nr, nc)         # nbr vs tiles
+        K.bsr_spmv(idx[:, :-1], vals, x, nr, nc)          # idx vs vals
     with pytest.raises(ValueError):
-        K.bsr_spmv(nbr, tiles, x, tiles.shape[0] * 8 + 1, nc)
+        K.bsr_spmv(idx, vals, x, vals.shape[0] * 8 + 1, nc)
 
 
 def test_cpu_tensors_take_the_plain_version_without_counting():
-    nbr, tiles, nr, nc = _random_bsr(16, torch.float32, "cpu")
+    idx, vals, nr, nc = _random_bsr(16, torch.float32, "cpu")
     x = torch.randn(nc, 3, dtype=torch.float32)
     before = measure.launch_counts()["bsr_spmv"]
-    y = K.bsr_spmv(nbr, tiles, x, nr, nc)
+    y = K.bsr_spmv(idx, vals, x, nr, nc)
     assert measure.launch_counts()["bsr_spmv"] == before
-    torch.testing.assert_close(y, K.bsr_spmv_plain(nbr, tiles, x, nr, nc),
+    torch.testing.assert_close(y, K.bsr_spmv_plain(idx, vals, x, nr, nc),
                                rtol=0, atol=0)
 
 
@@ -130,9 +140,8 @@ def test_plain_version_of_a_dense_matrix():
     """The plain version against a dense product built from the layout's
     definition: tiles[I, i, j*b + c] = A[I*b + i, nbr[I, j]*b + c]."""
     b = 8
-    nbr, tiles, nr, nc = _random_bsr(b, torch.float64, "cpu", nb=6, m=3,
-                                     seed=4)
-    # repeated neighbour slots (the layout's padding) add up like any other
+    nbr, tiles, nr, nc = _random_dense(b, torch.float64, nb=6, m=3, seed=4)
+    # repeated neighbour slots add up like any other
     t4 = tiles.reshape(6, b, 3, b)
     A = torch.zeros(6 * b, -(-nc // b) * b, dtype=torch.float64)
     for I in range(6):
@@ -140,7 +149,7 @@ def test_plain_version_of_a_dense_matrix():
             c0 = int(nbr[I, j]) * b
             A[I * b:(I + 1) * b, c0:c0 + b] += t4[I, :, j]
     x = torch.randn(nc, dtype=torch.float64)
-    y = K.bsr_spmv_plain(nbr, tiles, x, nr, nc)
+    y = K.bsr_spmv_plain(*K.pack(nbr, tiles), x, nr, nc)
     ref = (A[:, :nc] @ x)[:nr]
     torch.testing.assert_close(y, ref, rtol=0, atol=1e-12)
 
@@ -150,32 +159,32 @@ def test_plain_version_of_a_dense_matrix():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("block", [8, 16, 32])
 def test_kernel_matches_plain(cuda, block, dtype, nrhs):
-    nbr, tiles, nr, nc = _random_bsr(block, dtype, cuda, nb=57, m=7)
+    idx, vals, nr, nc = _random_bsr(block, dtype, cuda, nb=57, m=7)
     shape = (nc,) if nrhs == 1 else (nc, nrhs)
     x = torch.randn(shape, dtype=dtype, device=cuda)
     before = measure.launch_counts()["bsr_spmv"]
-    y = K.bsr_spmv(nbr, tiles, x, nr, nc)
+    y = K.bsr_spmv(idx, vals, x, nr, nc)
     torch.cuda.synchronize()
     name = "f32" if dtype == torch.float32 else "f64"
     assert measure.launch_counts()["bsr_spmv"][name] == before[name] + 1
-    ref = K.bsr_spmv_plain(nbr, tiles, x, nr, nc)
+    ref = K.bsr_spmv_plain(idx, vals, x, nr, nc)
     tol = 1e-5 if dtype == torch.float32 else 1e-12
     assert float((y - ref).abs().max() / ref.abs().max()) <= tol
     if nrhs > 1:
-        # one pass over the tiles serves every column, in the same order
+        # one pass over the slices serves every column, in the same order
         for j in range(nrhs):
-            yj = K.bsr_spmv(nbr, tiles, x[:, j].contiguous(), nr, nc)
+            yj = K.bsr_spmv(idx, vals, x[:, j].contiguous(), nr, nc)
             assert torch.equal(y[:, j], yj)
 
 
 @pytest.mark.gpu
 def test_kernel_raises_instead_of_falling_back(cuda):
-    nbr, tiles, nr, nc = _random_bsr(32, torch.float32, cuda)
+    idx, vals, nr, nc = _random_bsr(32, torch.float32, cuda)
     x = torch.randn(nc, 2, dtype=torch.float32, device=cuda)
     with pytest.raises(ValueError):
-        K.bsr_spmv(nbr, tiles, x.t().contiguous().t(), nr, nc)
+        K.bsr_spmv(idx, vals, x.t().contiguous().t(), nr, nc)
     with pytest.raises(ValueError):
-        K.bsr_spmv(nbr, tiles, torch.randn(nc, K.MAX_RHS + 1, device=cuda),
+        K.bsr_spmv(idx, vals, torch.randn(nc, K.MAX_RHS + 1, device=cuda),
                    nr, nc)
     with pytest.raises(ValueError):
-        K.bsr_spmv(nbr.cpu(), tiles, x[:, 0].contiguous(), nr, nc)
+        K.bsr_spmv(idx.cpu(), vals, x[:, 0].contiguous(), nr, nc)

@@ -489,12 +489,14 @@ def test_layout_bytes_of_each_product():
 def test_spmv_spans_name_each_product():
     """With spans on, every product of the three layouts is one span named
     by its layout, and the products give what they give with spans off."""
+    from fenapack_tpu_torch.ops.bsr_spmv import pack
     from fenapack_tpu_torch.ops.sparse import BlockELL
     cols, vals, nc = _random_ell(torch.float64, "cpu")
     bcols, A1, R, xb, _ = _random_block(torch.float64, "cpu", 2, True,
                                         n=40, n_cols=40)
     nbr = torch.tensor([[0, 1], [1, 1]], dtype=torch.int32)
-    bsr = BlockELL(nbr, torch.randn(2, 4, 8, dtype=torch.float64), 8, 8)
+    bsr = BlockELL(*pack(nbr, torch.randn(2, 4, 8, dtype=torch.float64)),
+                   8, 8)
     x, x8 = torch.randn(nc, dtype=torch.float64), torch.randn(
         8, dtype=torch.float64)
     ops = [lambda: ELL(cols, vals, nc).mv(x),

@@ -32,8 +32,9 @@ def main_path():
 
 
 def _fill(op) -> float:
-    """Stored tile slots per nonzero of a BSR operator."""
-    return op.tiles.numel() / op.nnz
+    """Dense tile slots per nonzero of a BSR operator (the slots its block
+    rows' neighbour blocks span, which RCM order cuts)."""
+    return op.dense_tiles().numel() / op.nnz
 
 
 @pytest.mark.parametrize("name", ["pat_p2", "pat_p1", "pat_div",
@@ -43,9 +44,9 @@ def test_main_path_patterns_store_less_fill(main_path, name):
     assert nl.asm.W.reorder and not natural.W.reorder
     rcm, nat = getattr(nl.asm, name), getattr(natural, name)
     assert rcm.nnz == nat.nnz and rcm.block == nat.block == bench.BLOCK
-    assert rcm.fill_ratio < nat.fill_ratio
+    assert rcm.tile_fill < nat.tile_fill
     assert _fill(rcm.matrix(torch.zeros(rcm.value_shape))) == \
-        pytest.approx(rcm.fill_ratio)
+        pytest.approx(rcm.tile_fill)
 
 
 def test_main_path_transfers_store_less_fill(main_path):
@@ -110,7 +111,7 @@ def test_bsr_counters_add_one_products_read(main_path):
     with timing.tracing():
         op.with_vals(op.tiles).mv(torch.ones(pat.n_cols, 3))
     c2 = measure.host_counts()
-    assert c2["bsr_slots"] - c1["bsr_slots"] == 2 * pat.nb * pat.m * 32 * 32
+    assert c2["bsr_slots"] - c1["bsr_slots"] == 2 * pat.slots
     assert c2["bsr_nnz"] - c1["bsr_nnz"] == 2 * pat.nnz
     # by the tiles' dtype: the nonzeros and the vectors' entries (k = 1, 3)
     assert c2["bsr_nnz_f32"] - c1["bsr_nnz_f32"] == 2 * pat.nnz

@@ -175,7 +175,7 @@ def test_velocity_vcycle_matches_jax(l1_f64):
     A1t, Rt = nt.oseen._operator_values(torch.as_tensor(wind))
     A1j, _ = nj.oseen._operator_values(jnp.asarray(wind))
     assert Rt is None                       # Picard: no reaction blocks
-    assert _rel(A1t.numpy(), A1j) <= 1e-12
+    assert _rel(nt.asm.pat_p2.dense_tiles(A1t).numpy(), A1j) <= 1e-12
     zt = nt.oseen._velocity_solver(A1t, torch.as_tensor(wind))(
         torch.as_tensor(r))
     zj = nj.oseen._velocity_solver(A1j, None, wind=jnp.asarray(wind))(
@@ -199,9 +199,15 @@ def test_high_precision_matvec_matches_jax(l1_f64):
     A1t, Rt = nt.oseen._operator_values_raw(torch.as_tensor(wind), hi=True)
     A1j, Rj = nj.oseen._operator_values_raw(jnp.asarray(wind), hi=True)
     assert Rt is None and Rj is None
-    assert _rel(A1t.numpy(), A1j) <= 1e-6        # f32 convection integrals
-    yt = nt.oseen._matvec_factory(torch.as_tensor(np.array(A1j)),
-                                  hi=True)(torch.as_tensor(x))
+    pat = nt.asm.pat_p2_hi
+    # f32 convection integrals
+    assert _rel(pat.dense_tiles(A1t).numpy(), A1j) <= 1e-6
+    # the JAX package's tiles on the port's packed slots
+    A1p = torch.zeros(pat.value_size, dtype=torch.float64)
+    A1p[pat._upos] = torch.as_tensor(np.array(A1j)).reshape(-1)[
+        pat.dense_positions(pat._upos)]
+    yt = nt.oseen._matvec_factory(A1p.reshape(pat.value_shape), hi=True)(
+        torch.as_tensor(x))
     yj = nj.oseen._matvec_factory(A1j, Rj, hi=True)(jnp.asarray(x))
     assert _rel(yt.numpy(), yj) <= 1e-12
 
