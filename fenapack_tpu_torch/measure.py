@@ -39,7 +39,8 @@ def reset_launches() -> None:
 
 def host_counts() -> dict:
     """The solve path's counters of this process (``host_syncs``,
-    ``true_residuals``, the BSR reads ``bsr_*``, ``pc_applies``,
+    ``true_residuals``, the BSR reads ``bsr_*``, the ELL reads ``ell_*``,
+    ``unsteady_steps``, ``unsteady_picard_iters``, ``pc_applies``,
     ``pc_graph_replays``: :data:`..utils.timing.counts` less the launch
     counters), counted on every device."""
     from .utils import timing

@@ -46,7 +46,7 @@ import torch
 from . import bsr_spmv as _bsr
 from .bsr_spmv import bsr_spmv
 from .ell_spmv import ell_block_spmv, ell_spmv
-from ..utils.timing import bsr_read, span
+from ..utils.timing import bsr_read, ell_read, span
 
 
 class SegmentSum:
@@ -106,24 +106,32 @@ class SegmentSum:
 class ELL:
     """ELL sparse matrix: ``cols`` (n_rows, K) int32, ``vals`` same shape.
     Padded slots have ``col = 0`` and ``val = 0``; they follow a row's own
-    entries, of which ``row_len`` (n_rows,) int32 holds the count when the
-    pattern is known (None: every row is K long)."""
+    entries, of which ``row_len`` (n_rows,) int32 holds the count and
+    ``nnz`` their sum (a host integer) when the pattern is known (None:
+    every row is K long).  Every product adds its entries (``nnz``, or
+    every slot) and its vector entries to the counters ``ell_nnz_<dtype>``,
+    ``ell_vec_<dtype>``."""
 
     def __init__(self, cols: torch.Tensor, vals: torch.Tensor, n_cols: int,
-                 row_len: Optional[torch.Tensor] = None):
+                 row_len: Optional[torch.Tensor] = None,
+                 nnz: Optional[int] = None):
         self.cols, self.vals, self.n_cols = cols, vals, n_cols
-        self.row_len = row_len
+        self.row_len, self.nnz = row_len, nnz
 
     @property
     def shape(self):
         return (self.cols.shape[0], self.n_cols)
 
     def with_vals(self, vals: torch.Tensor) -> "ELL":
-        return ELL(self.cols, vals, self.n_cols, self.row_len)
+        return ELL(self.cols, vals, self.n_cols, self.row_len, self.nnz)
 
     def mv(self, x: torch.Tensor) -> torch.Tensor:
         """y = A @ x for x of shape (n_cols,) or (n_cols, k)."""
         with span("spmv.ell"):
+            k = 1 if x.dim() == 1 else x.shape[1]
+            ell_read(self.vals.dtype,
+                     self.cols.numel() if self.nnz is None else self.nnz,
+                     (self.cols.shape[0] + self.n_cols) * k)
             return ell_spmv(self.cols, self.vals, x.contiguous(),
                             self.n_cols)
 
@@ -138,22 +146,28 @@ class ELLBlock:
     """The velocity block over one ELL pattern: ``A1`` (n_rows, K) on every
     component's diagonal plus, when given, the reaction blocks ``R``
     (d, d, n_rows, K), all over the column array ``cols`` whose rows hold
-    ``row_len`` entries each (None: K)."""
+    ``row_len`` entries each, ``nnz`` in all (None: K, every slot)."""
 
     def __init__(self, cols: torch.Tensor, A1: torch.Tensor,
                  R: Optional[torch.Tensor], n_cols: int,
-                 row_len: Optional[torch.Tensor] = None):
+                 row_len: Optional[torch.Tensor] = None,
+                 nnz: Optional[int] = None):
         self.cols, self.A1, self.R, self.n_cols = cols, A1, R, n_cols
-        self.row_len = row_len
+        self.row_len, self.nnz = row_len, nnz
 
     def mv(self, x: torch.Tensor, y0=None) -> torch.Tensor:
         """``y[a] = A1 x[a] + y0[a] + sum_b R[a, b] x[b]`` for x of shape
         (d, n_cols): (d, n_rows), the components in the order of x.  ``y0``
         is None, a (d, n_rows) tensor or a sequence of d vectors."""
+        y0 = stacked(y0)
         with span("spmv.ell_block"):
+            d, n_rows = x.shape[0], self.cols.shape[0]
+            nnz = self.cols.numel() if self.nnz is None else self.nnz
+            ell_read(self.A1.dtype,
+                     nnz * (1 if self.R is None else 1 + d * d),
+                     d * (self.n_cols + n_rows * (1 if y0 is None else 2)))
             return ell_block_spmv(self.cols, self.A1, self.R, x,
-                                  self.n_cols, stacked(y0),
-                                  row_len=self.row_len)
+                                  self.n_cols, y0, row_len=self.row_len)
 
 
 def stacked(y0):
@@ -308,14 +322,15 @@ class SparsityPattern:
         return int(np.prod(self.value_shape))
 
     def matrix(self, vals: torch.Tensor):
-        return ELL(self.cols, vals, self.n_cols, self.row_len)
+        return ELL(self.cols, vals, self.n_cols, self.row_len, self.nnz)
 
     def block_matrix(self, A1vals: torch.Tensor,
                      Rvals: Optional[torch.Tensor] = None):
         """The velocity block ``A1`` per component plus the reaction blocks
         ``Rvals`` (d, d, *value_shape) or None, all over this pattern; its
         ``mv(x, y0=None)`` is :meth:`ELLBlock.mv`'s."""
-        return ELLBlock(self.cols, A1vals, Rvals, self.n_cols, self.row_len)
+        return ELLBlock(self.cols, A1vals, Rvals, self.n_cols, self.row_len,
+                        self.nnz)
 
     def assemble_values(self, element_values: torch.Tensor) -> torch.Tensor:
         """Sum flat element-tensor values into a value array, each slot's

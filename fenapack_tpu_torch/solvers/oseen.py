@@ -438,7 +438,8 @@ class OseenSolver:
         krylov.atol)``, at most ``krylov.maxiter`` iterations.  Returns the
         :class:`FGMRESResult` and the system matvec it solved with."""
         kcfg = self.config.krylov
-        matvec, pc = self._compute_pipeline(wind)
+        with timing.span("oseen.build"):
+            matvec, pc = self._compute_pipeline(wind)
         res, _ = self._krylov(matvec, pc, b.to(self.dtype), kcfg.rtol,
                               atol=kcfg.atol)
         return res, matvec

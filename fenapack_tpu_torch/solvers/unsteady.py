@@ -33,6 +33,17 @@ Two time loops:
 The JAX package also compiles a step, or the whole horizon, into one device
 program; here a time loop is a Python loop and those forms have no
 counterpart.
+
+The exact loop's spans (:mod:`..utils.timing`): ``unsteady.solve`` around
+:meth:`UnsteadySolver.solve` (one request), ``unsteady.step`` around a
+time step, ``unsteady.picard`` around one Picard iteration (the Oseen
+solve, the read of its true residual and the update),
+``unsteady.residual`` around each residual and the read of its norm.  Its
+counters: ``unsteady_steps``, ``unsteady_picard_iters`` (the Oseen
+solves), and ``host_syncs`` at every site where it waits for the device: a
+residual's norm, a linear solve's true residual, a copy of the state to
+the host (``keep_history``) and of Dirichlet values to the device
+(``bc_fn``).
 """
 from __future__ import annotations
 
@@ -44,6 +55,8 @@ import numpy as np
 import torch
 
 from ..fem.dofmap import DirichletBC, merge_bcs
+from ..utils import timing
+from ..utils.timing import span
 from .config import SolverConfig
 from .oseen import OseenSolver
 
@@ -193,6 +206,7 @@ class UnsteadySolver:
         """``w`` with its constrained velocity dofs overwritten by new
         Dirichlet data."""
         vals = torch.as_tensor(bc_vals, dtype=w.dtype, device=w.device)
+        timing.host_sync()
         u = torch.where(self.oseen.bc_mask_u > 0, vals, w[:self.n_u])
         return torch.cat([u, w[self.n_u:]])
 
@@ -201,7 +215,8 @@ class UnsteadySolver:
     # -------------------------------------------------------------- #
     def step(self, w: torch.Tensor, *, picard_iters: int = 1,
              rtol: float = 1e-6, u_prev: Optional[torch.Tensor] = None,
-             bc_vals=None, lin_rel: Optional[list] = None):
+             bc_vals=None, lin_rel: Optional[list] = None,
+             on_solve: Optional[Callable] = None):
         """Advance one time step; returns ``(w_new, linear iterations,
         last nonlinear residual norm)``.  ``u_prev`` (BDF2 only) is the
         velocity of two steps ago; None selects the startup step.
@@ -209,36 +224,57 @@ class UnsteadySolver:
         into the state before the residual, so the mass term carries the
         exact Dirichlet-lift contribution of a moving boundary.  A list
         ``lin_rel`` receives the true relative residual of each linear
-        solve."""
-        u_old = w[:self.n_u]
-        aux = self._step_aux(u_old, u_prev)
-        if bc_vals is not None:
-            w = self.apply_bc_values(w, bc_vals)
-        total, rn = 0, None
-        for _ in range(max(picard_iters, 1)):
-            F = self._residual_full(w, u_old, aux)
-            rn = float(torch.linalg.norm(F))
-            if rn <= rtol:
-                break
-            res, matvec = self.oseen.solve(w[:self.n_u], -F)
-            total += int(res.iters)
-            if lin_rel is not None:
-                lin_rel.append(float(torch.linalg.norm(-F - matvec(res.x)))
-                               / max(res.bnorm, 1e-300))
-            w = w + res.x
-        return w, total, rn
+        solve; ``on_solve(i, w)`` is called before the i-th Oseen solve
+        with the iterate whose velocity it is linearized at."""
+        with span("unsteady.step"):
+            timing.counts["unsteady_steps"] += 1
+            u_old = w[:self.n_u]
+            aux = self._step_aux(u_old, u_prev)
+            if bc_vals is not None:
+                w = self.apply_bc_values(w, bc_vals)
+            total, rn = 0, None
+            for i in range(max(picard_iters, 1)):
+                with span("unsteady.residual"):
+                    F = self._residual_full(w, u_old, aux)
+                    rn = float(torch.linalg.norm(F))
+                    timing.host_sync()
+                if rn <= rtol:
+                    break
+                with span("unsteady.picard"):
+                    timing.counts["unsteady_picard_iters"] += 1
+                    if on_solve is not None:
+                        on_solve(i, w)
+                    res, matvec = self.oseen.solve(w[:self.n_u], -F)
+                    total += int(res.iters)
+                    if lin_rel is not None:
+                        lin_rel.append(
+                            float(torch.linalg.norm(-F - matvec(res.x)))
+                            / max(res.bnorm, 1e-300))
+                        timing.host_sync()
+                    w = w + res.x
+            return w, total, rn
 
     def solve(self, t_end: float, w0: Optional[torch.Tensor] = None, *,
               picard_iters: int = 1, keep_history: bool = False,
               callback=None,
-              u_prev0: Optional[torch.Tensor] = None) -> UnsteadyResult:
+              u_prev0: Optional[torch.Tensor] = None,
+              picard_callback=None) -> UnsteadyResult:
         """``round(t_end / dt)`` steps of :meth:`step` from ``w0`` (default
         the initial state).  ``u_prev0`` (BDF2 only): the velocity at
         t = -dt; with it the first step runs full BDF2 instead of the
         implicit-Euler startup, whose effective step 2 dt / 3 leaves an
         O(dt) error in the whole trajectory (restores the history when
         resuming from a checkpoint).  ``lin_rel`` of the result holds each
-        step's largest true relative residual of its linear solves."""
+        step's largest true relative residual of its linear solves.
+        ``callback(k, t, w)`` follows step k; ``picard_callback(k, i, w)``
+        precedes its i-th Oseen solve, with the iterate whose velocity that
+        solve is linearized at."""
+        with timing.request("unsteady.solve"):
+            return self._solve(t_end, w0, picard_iters, keep_history,
+                               callback, u_prev0, picard_callback)
+
+    def _solve(self, t_end, w0, picard_iters, keep_history, callback,
+               u_prev0, picard_callback) -> UnsteadyResult:
         t0 = time.perf_counter()
         dtc = self.oseen.dtype
         w = self.initial_state() if w0 is None else w0.to(dtc)
@@ -251,9 +287,11 @@ class UnsteadySolver:
             bc_vals = (self._bc_values_at(t + self.dt)
                        if self.bc_fn is not None else None)
             rels = []
+            on_solve = (None if picard_callback is None else
+                        lambda i, w_i, k=k: picard_callback(k, i, w_i))
             w, it, rn = self.step(w, picard_iters=picard_iters,
                                   u_prev=u_prev, bc_vals=bc_vals,
-                                  lin_rel=rels)
+                                  lin_rel=rels, on_solve=on_solve)
             lin_rel.append(max(rels, default=0.0))
             u_prev = u_old                   # BDF2 history (theta: unread)
             t += self.dt
@@ -262,6 +300,7 @@ class UnsteadySolver:
             resid.append(rn)
             if keep_history:
                 hist.append(w.cpu().numpy())
+                timing.host_sync()
             if callback is not None:
                 callback(k, t, w)
         return UnsteadyResult(w=w, times=times, linear_iters=iters,

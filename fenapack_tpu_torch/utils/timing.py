@@ -31,11 +31,19 @@ ratio is the zero fill per nonzero that the products read; by the tiles'
 dtype (``f32``, ``f64``), ``bsr_nnz_<dtype>`` the same nonzeros and
 ``bsr_vec_<dtype>`` the entries of its input and output vectors
 (``(n_rows + n_cols) * k``), from which a reader reckons the least bytes
-the products move.  ``pc_applies`` counts every apply of a fieldsplit
-pipeline and ``pc_graph_replays`` those served by replaying its CUDA graphs
-(:mod:`..solvers.fieldsplit`).  ``launch.<kernel>.<dtype>`` counts the
-launches of each kernel wrapper (:func:`launched`; the plain versions count
-nothing).  A CUDA graph's capture takes back what its Python counted and
+the products move.  At every ELL product (:func:`ell_read`: the single
+product K3 and the block product), by the values' dtype,
+``ell_nnz_<dtype>`` the entries its operator stores (the pattern's own
+entries, ``sum(row_len)``, not the padding slots; the block product counts
+A1's entries once for its d components, and each of the d*d reaction
+planes' entries once more) and ``ell_vec_<dtype>`` the entries of its input
+and output vectors (``y0`` too where given).  ``unsteady_steps`` and
+``unsteady_picard_iters`` count the time steps and the Picard iterations
+(Oseen solves) of :mod:`..solvers.unsteady`.  ``pc_applies`` counts every
+apply of a fieldsplit pipeline and ``pc_graph_replays`` those served by
+replaying its CUDA graphs (:mod:`..solvers.fieldsplit`).
+``launch.<kernel>.<dtype>`` counts the launches of each kernel wrapper
+(:func:`launched`; the plain versions count nothing).  A CUDA graph's capture takes back what its Python counted and
 every replay adds it (:class:`..solvers.fieldsplit.PCGraphs`).
 ``fenapack_tpu_torch.measure`` reads them: ``launch_counts`` the launches,
 ``host_counts`` the rest.
@@ -119,11 +127,14 @@ LAUNCH = "launch."
 
 # since the process started: host waits for the device and true residuals
 # of the solve path; the BSR products' tile slots, nonzeros and vector
-# entries; the fieldsplit applies and those served by graph replay; the
-# kernel launches
+# entries; the ELL products' entries and vector entries; the time steps
+# and Picard iterations of the unsteady solvers; the fieldsplit applies and
+# those served by graph replay; the kernel launches
 counts = {"host_syncs": 0, "true_residuals": 0, "bsr_slots": 0,
           "bsr_nnz": 0, "bsr_nnz_f32": 0, "bsr_vec_f32": 0,
-          "bsr_nnz_f64": 0, "bsr_vec_f64": 0, "pc_applies": 0,
+          "bsr_nnz_f64": 0, "bsr_vec_f64": 0, "ell_nnz_f32": 0,
+          "ell_vec_f32": 0, "ell_nnz_f64": 0, "ell_vec_f64": 0,
+          "unsteady_steps": 0, "unsteady_picard_iters": 0, "pc_applies": 0,
           "pc_graph_replays": 0,
           **{f"{LAUNCH}{k}.{t}": 0 for k in KERNELS for t in ("f32", "f64")}}
 
@@ -137,6 +148,14 @@ def bsr_read(**reads: int) -> None:
     """Add one BSR product's reads to the counters ``bsr_<name>``."""
     for name, n in reads.items():
         counts["bsr_" + name] += n
+
+
+def ell_read(dtype: torch.dtype, nnz: int, vec: int) -> None:
+    """Add one ELL product's stored entries and vector entries to the
+    counters ``ell_nnz_<dtype>``, ``ell_vec_<dtype>``."""
+    t = "f64" if dtype == torch.float64 else "f32"
+    counts["ell_nnz_" + t] += nnz
+    counts["ell_vec_" + t] += vec
 
 
 def launched(kernel: str, dtype: str) -> None:
@@ -231,12 +250,13 @@ def span(name: str):
     return _recorder._open(name)
 
 
-def request():
-    """The span ``solve`` of one full solve: counts the request (the spans
+def request(name: str = "solve"):
+    """The span ``name`` of one full solve (``solve``: a steady solve;
+    ``unsteady.solve``: a time integration): counts the request (the spans
     inside it carry the count), then as :func:`span`."""
     global _request
     _request += 1
-    return span("solve")
+    return span(name)
 
 
 @contextmanager
